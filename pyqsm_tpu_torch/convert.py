@@ -1,0 +1,58 @@
+"""Carry configuration and state across from the JAX package.
+
+This path has no learned weights; what crosses over is configuration and
+state. The JAX package's containers arrive as dicts of numpy arrays (e.g.
+``{f: np.asarray(getattr(L, f)) for f in L._fields}``), so this module
+needs nothing of that package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pyqsm_tpu_torch.config import _SECTION_TYPES, Config
+from pyqsm_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from pyqsm_tpu_torch.ops.sparse import ELLLaplacian
+from pyqsm_tpu_torch.state import Cylinders, PointCloud
+
+_KINDS = {"laplacian": ELLLaplacian, "point_cloud": PointCloud, "cylinders": Cylinders}
+# ELLLaplacian fields that are scalars per tree in the JAX package
+_SCALAR_FIELDS = {"t_overflow", "s_overflow"}
+
+
+def config_from_reference(raw: dict) -> Config:
+    """A port ``Config`` from the JAX package's config as a dict (e.g.
+    ``dataclasses.asdict(cfg)``): section name -> field dict."""
+    sections = {}
+    for name, cls in _SECTION_TYPES.items():
+        if name in raw:
+            known = {f.name for f in dataclasses.fields(cls)}
+            sections[name] = cls(**{k: v for k, v in raw[name].items() if k in known})
+    return Config(**sections)
+
+
+def state_from_numpy(kind: str, arrays: dict, batched: bool = False,
+                     device: str | torch.device = DEFAULT_DEVICE):
+    """The port's container of ``kind`` ("laplacian", "point_cloud",
+    "cylinders") from a dict of numpy arrays keyed by field name (absent or
+    None fields stay None). A laplacian gains the port's leading trees axis
+    unless ``batched`` says it already has one (a vmapped JAX Laplacian)."""
+    if kind not in _KINDS:
+        raise ValueError(f"unknown kind {kind!r}; expected one of {sorted(_KINDS)}")
+    dev = resolve_device(device)
+    cls = _KINDS[kind]
+    out = {}
+    for f in cls._fields:
+        v = arrays.get(f)
+        if v is None:
+            continue
+        t = torch.as_tensor(np.array(v), device=dev)
+        if kind == "laplacian" and not batched:
+            t = t[None]
+        elif kind == "laplacian" and f in _SCALAR_FIELDS and t.dim() == 0:
+            t = t[None]
+        out[f] = t
+    return cls(**out)

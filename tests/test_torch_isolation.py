@@ -1,0 +1,178 @@
+"""Tree isolation of the PyTorch port against the JAX package on the CPU
+(the cases of tests/test_isolation.py): seeds, region growing with the
+gather and the push claims, and build_trees — labels BIT-EQUAL."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyqsm_tpu.config import IsolationConfig as JIso
+from pyqsm_tpu.models import isolation as ji
+from pyqsm_tpu.ops.neighbors import radius_knn as j_radius_knn
+from pyqsm_tpu.ops.sparse import morton_codes as j_morton
+from pyqsm_tpu_torch.config import IsolationConfig as TIso
+from pyqsm_tpu_torch.models import isolation as ti
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def two_tree_plot(rng, n_per=4000):
+    """Two synthetic trees (dense vertical trunks + blobby canopies), 8 m apart."""
+    def tree(cx, cy):
+        z = rng.uniform(0, 6, n_per)
+        th = rng.uniform(0, 2 * np.pi, n_per)
+        r = 0.25 + rng.normal(0, 0.01, n_per)
+        trunk = np.stack([cx + r * np.cos(th), cy + r * np.sin(th), z], 1)
+        canopy = rng.normal([cx, cy, 7.0], [1.5, 1.5, 1.0], size=(n_per // 2, 3))
+        return np.concatenate([trunk, canopy])
+    return np.concatenate([tree(0, 0), tree(8, 0)]).astype(np.float32)
+
+
+def _eq(a, b):
+    np.testing.assert_array_equal(np.asarray(a), b.numpy() if isinstance(b, torch.Tensor) else b)
+
+
+@pytest.mark.parametrize("coarsen_rows", [65536, 256])
+def test_id_trunk_bases_equal(rng, coarsen_rows):
+    """Exact row-resolution seeds and the eps/8 coarsened (weighted core
+    count) path both give the JAX package's labels and slices."""
+    pts = two_tree_plot(rng)
+    m = np.ones(len(pts), bool)
+    kw = dict(base_min_points=50, low_pctile=5.0)
+    a = ji.id_trunk_bases(jnp.asarray(pts), jnp.asarray(m), JIso(**kw), coarsen_rows=coarsen_rows)
+    b = ti.id_trunk_bases(torch.as_tensor(pts), torch.as_tensor(m), TIso(**kw),
+                          coarsen_rows=coarsen_rows)
+    for x, y in zip(a, b):
+        _eq(x, y)
+    lab = b[0].numpy()
+    assert len(np.unique(lab[lab >= 0])) == 2
+
+
+def test_exclude_regions_equal(rng):
+    pts = two_tree_plot(rng)
+    m = np.ones(len(pts), bool)
+    region = [[6.0, -3.0], [10.0, 3.0]]
+    kw = dict(base_min_points=50, low_pctile=5.0)
+    a = ji.id_trunk_bases(jnp.asarray(pts), jnp.asarray(m), JIso(**kw), [region])
+    b = ti.id_trunk_bases(torch.as_tensor(pts), torch.as_tensor(m), TIso(**kw), [region])
+    _eq(a[0], b[0])
+    assert len(np.unique(b[0].numpy()[b[0].numpy() >= 0])) == 1
+
+
+@pytest.mark.parametrize("min_frontier", [1, 3])
+def test_region_grow_on_chain(min_frontier):
+    n = 100
+    pts = np.stack([np.arange(n) * 0.05, np.zeros(n), np.zeros(n)], 1).astype(np.float32)
+    _, idx = j_radius_knn(jnp.asarray(pts), jnp.asarray(pts), radius=0.06, k=4)
+    seeds = np.full(n, -1, np.int32)
+    seeds[0], seeds[n - 1] = 0, 1
+    a = ji.region_grow(idx, jnp.asarray(seeds), jnp.ones(n, bool), max_cycles=200,
+                       min_frontier=min_frontier)
+    b = ti.region_grow(torch.as_tensor(np.array(idx)), torch.as_tensor(seeds),
+                       torch.ones(n, dtype=torch.bool), max_cycles=200, min_frontier=min_frontier)
+    _eq(a.labels, b.labels)
+    _eq(a.order, b.order)
+    assert int(a.cycles_run) == b.cycles_run
+    if min_frontier == 1:  # the middle tie goes to the lower id
+        lab = b.labels.numpy()
+        assert (lab[:45] == 0).all() and (lab[55:] == 1).all()
+
+
+def _blob_graph(rng, n=32768):
+    centers = rng.uniform(0, 12, (6, 3)).astype(np.float32)
+    pts = (centers[rng.integers(0, 6, n)] + rng.normal(0, 0.9, (n, 3))).astype(np.float32)
+    order = np.asarray(jnp.argsort(j_morton(jnp.asarray(pts), jnp.ones(n, bool))))
+    p = jnp.asarray(pts[order])
+    _, idx = j_radius_knn(p, p, radius=0.25, k=8)
+    seeds = np.full(n, -1, np.int32)
+    for cid in range(6):
+        seeds[rng.integers(0, n, 4)] = cid
+    return np.array(idx), seeds
+
+
+@pytest.mark.parametrize("mode", ["gather", "push"])
+def test_region_grow_claims_match_jax_gather(rng, monkeypatch, mode):
+    """Both claims of the port are bit-identical to the JAX package's gather
+    kernel on a contested multi-blob graph; the named claim really ran."""
+    monkeypatch.setenv("PYQSM_CLAIM", mode)
+    idx, seeds = _blob_graph(rng)
+    n = idx.shape[0]
+    kw = dict(max_cycles=60, min_frontier=2, cluster_cap=16)
+    ref = ji._region_grow_gather(jnp.asarray(idx), jnp.asarray(seeds), jnp.ones(n, bool), **kw)
+    res = ti.region_grow(torch.as_tensor(idx), torch.as_tensor(seeds),
+                         torch.ones(n, dtype=torch.bool), **kw)
+    assert res.claim == mode
+    _eq(ref.labels, res.labels)
+    _eq(ref.order, res.order)
+    _eq(ref.active, res.active)
+    assert int(ref.cycles_run) == res.cycles_run
+    assert int((res.labels >= 0).sum()) > 24
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_region_grow_push_fuzz_matches_jax(rng, monkeypatch, trial):
+    """Spill-heavy random graphs, masked rows, sparse or empty seeds: the
+    port's push claim equals the JAX package's push claim and gather."""
+    monkeypatch.setenv("PYQSM_CLAIM", "push")
+    rng = np.random.default_rng(100 + trial)
+    n, k = 8192, 6
+    lo = np.maximum(np.arange(n)[:, None] - 200, 0)
+    idx = np.where(rng.uniform(size=(n, k)) < 0.25, rng.integers(0, n, (n, k)),
+                   np.minimum(lo + rng.integers(0, 400, (n, k)), n - 1)).astype(np.int32)
+    idx[idx == np.arange(n)[:, None]] = -1
+    idx[rng.uniform(size=(n, k)) < 0.1] = -1
+    mask = rng.uniform(size=n) > (0.2 if trial % 2 else 0.0)
+    seeds = np.full(n, -1, np.int32)
+    n_seeds = [40, 1, 12, 0][trial]
+    if n_seeds:
+        seeds[rng.choice(n, n_seeds, replace=False)] = rng.integers(0, trial + 1, n_seeds)
+    kw = dict(max_cycles=40, min_frontier=[2, 1, 3, 2][trial], cluster_cap=16)
+    ref = ji.region_grow(jnp.asarray(idx), jnp.asarray(seeds), jnp.asarray(mask), kt_max=256, **kw)
+    assert ji.LAST_CLAIM_KERNEL == "push"
+    res = ti.region_grow(torch.as_tensor(idx), torch.as_tensor(seeds), torch.as_tensor(mask),
+                         kt_max=256, **kw)
+    assert res.claim == "push"
+    _eq(ref.labels, res.labels)
+    _eq(ref.order, res.order)
+    _eq(ref.active, res.active)
+
+
+def test_region_grow_push_falls_back_on_indegree_overflow(rng, monkeypatch):
+    monkeypatch.setenv("PYQSM_CLAIM", "push")
+    n, k = 4096, 4
+    idx = rng.integers(0, n, (n, k)).astype(np.int32)
+    idx[:, 0] = 7
+    idx[idx == np.arange(n)[:, None]] = -1
+    seeds = np.full(n, -1, np.int32)
+    seeds[:8] = np.arange(8) % 4
+    kw = dict(max_cycles=20, min_frontier=1, cluster_cap=8)
+    res = ti.region_grow(torch.as_tensor(idx), torch.as_tensor(seeds),
+                         torch.ones(n, dtype=torch.bool), kt_max=64, **kw)
+    assert res.claim == "gather"
+    ref = ji._region_grow_gather(jnp.asarray(idx), jnp.asarray(seeds), jnp.ones(n, bool), **kw)
+    _eq(ref.labels, res.labels)
+
+
+@pytest.mark.parametrize("mode", ["gather", "push"])
+def test_build_trees_equal(rng, monkeypatch, mode):
+    monkeypatch.setenv("PYQSM_CLAIM", mode)
+    pts = two_tree_plot(rng)
+    m = np.ones(len(pts), bool)
+    kw = dict(base_min_points=50, low_pctile=5.0, max_dist=0.35, cycles=300, min_frontier=2)
+    a = ji.build_trees(jnp.asarray(pts), jnp.asarray(m), JIso(**kw), neighbor_cap=16)
+    b = ti.build_trees(pts, m, TIso(**kw), device="cpu")
+    assert b.claim == mode
+    _eq(a.labels, b.labels)
+    _eq(a.order, b.order)
+    assert int(a.cycles_run) == b.cycles_run
+    lab = b.labels.numpy()
+    t0, t1 = lab[:4000], lab[6000:10000]
+    assert (t0 >= 0).sum() > 3000 and (t1 >= 0).sum() > 3000
+    assert t0[t0 >= 0][0] != t1[t1 >= 0][0]

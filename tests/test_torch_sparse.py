@@ -1,0 +1,191 @@
+"""Parity of the port's banded matvec, sparse operators, Laplacian and PCG
+with the JAX package on the CPU, plus the kernel-vs-plain check that needs
+the card (marked ``gpu``; it skips without one)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyqsm_tpu.ops import laplacian as jlap
+from pyqsm_tpu.ops import sparse as jsp
+from pyqsm_tpu.ops.pallas_kernels import band_matvec_pallas
+from pyqsm_tpu_torch.convert import state_from_numpy
+from pyqsm_tpu_torch.ops import band_matvec as bm
+from pyqsm_tpu_torch.ops import laplacian as tlap
+from pyqsm_tpu_torch.ops import sparse as tsp
+
+BS = 256
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _band_inputs(seed, t=2, nb=3, c=3):
+    rng = np.random.default_rng(seed)
+    b_w = rng.normal(size=(t, nb, BS, 3 * BS)).astype(np.float32)
+    x = rng.normal(size=(t, nb * BS, c)).astype(np.float32)
+    return b_w, x
+
+
+def _scale(b_w, x):
+    """Σ_j |W_ij||x_j| per output row: f32 sums of 768 terms in two orders
+    differ by at most 768·2⁻²⁴ of it."""
+    return np.asarray(jax.vmap(jsp._band_apply)(jnp.abs(jnp.asarray(b_w)), jnp.abs(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+def test_band_plain_matches_jax_einsum_and_pallas(nb):
+    b_w, x = _band_inputs(1, nb=nb)
+    y_t = bm.band_apply(torch.as_tensor(b_w), torch.as_tensor(x)).numpy()
+    y_j = np.asarray(jax.vmap(jsp._band_apply)(jnp.asarray(b_w), jnp.asarray(x)))
+    y_p = np.asarray(jax.vmap(lambda a, b: band_matvec_pallas(a, b, interpret=True))(
+        jnp.asarray(b_w), jnp.asarray(x)))
+    tol = 768 * 2.0 ** -24 * _scale(b_w, x)
+    assert np.all(np.abs(y_t - y_j) <= tol)
+    assert np.all(np.abs(y_t - y_p) <= tol)
+
+
+def test_band_transpose_matches_jax_transpose_apply():
+    """The Wᵀ band equals the JAX package's; applying it with the forward
+    kernel's plain version gives the JAX package's transpose apply."""
+    b_w, x = _band_inputs(2)
+    bt = tsp.band_transpose(torch.as_tensor(b_w))
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(jax.vmap(jsp.band_transpose)(jnp.asarray(b_w))))
+    y_t = bm.band_apply(bt, torch.as_tensor(x)).numpy()
+    y_j = np.asarray(jax.vmap(jsp._band_apply_t)(jnp.asarray(b_w), jnp.asarray(x)))
+    np.testing.assert_allclose(y_t, y_j, rtol=0, atol=768 * 2.0 ** -24 * 4 * np.abs(y_j).max())
+
+
+def _graph(seed, n=1024, k=8, far=0.2):
+    rng = np.random.default_rng(seed)
+    lo = np.maximum(np.arange(n)[:, None] - 300, 0)
+    idx = np.minimum(lo + rng.integers(0, 600, (n, k)), n - 1)
+    idx = np.where(rng.random((n, k)) < far, rng.integers(0, n, (n, k)), idx).astype(np.int32)
+    idx[rng.random((n, k)) < 0.1] = -1
+    w = np.where(idx >= 0, rng.random((n, k)), 0).astype(np.float32)
+    return idx, w
+
+
+@pytest.mark.parametrize("cap", [64, 4096])
+def test_build_banded_and_spill_transpose(cap):
+    idx, w = _graph(3)
+    a = jsp.build_banded(jnp.asarray(idx), jnp.asarray(w), spill_cap=cap)
+    b = tsp.build_banded(torch.as_tensor(idx)[None], torch.as_tensor(w)[None], spill_cap=cap)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), y[0].numpy())
+    n = idx.shape[0]
+    for x, y in zip(jsp.sort_spill_transpose(*a[1:4], n), tsp.sort_spill_transpose(*b[1:4], n)):
+        np.testing.assert_array_equal(np.asarray(x), y[0].numpy())
+
+
+@pytest.mark.parametrize("kt", [8, 64])
+def test_build_transpose_ell(kt):
+    idx, w = _graph(4)
+    a = jsp.build_transpose_ell(jnp.asarray(idx), jnp.asarray(w), kt=kt)
+    b = tsp.build_transpose_ell(torch.as_tensor(idx), torch.as_tensor(w), kt=kt)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), y.numpy())
+
+
+def _tree_cloud(n=1536, live=1500):
+    rng = np.random.default_rng(5)
+    z = rng.uniform(0, 3, live)
+    th = rng.uniform(0, 2 * np.pi, live)
+    pts = np.zeros((n, 3), np.float32)
+    pts[:live] = np.stack([0.3 * np.cos(th), 0.3 * np.sin(th), z], 1)
+    m = np.arange(n) < live
+    perm = np.asarray(jnp.argsort(jsp.morton_codes(jnp.asarray(pts), jnp.asarray(m))))
+    return pts[perm], m[perm]
+
+
+def _carry(L):
+    return state_from_numpy("laplacian", {f: None if getattr(L, f) is None else np.asarray(getattr(L, f))
+                                          for f in L._fields}, device="cpu")
+
+
+@pytest.mark.parametrize("banded", [False, True])
+def test_point_cloud_laplacian_matches_jax(banded):
+    pts, m = _tree_cloud()
+    La = jlap.point_cloud_laplacian(jnp.asarray(pts), jnp.asarray(m), 12, 1e-6, banded=banded)
+    Lb = tlap.point_cloud_laplacian(torch.as_tensor(pts), torch.as_tensor(m), 12, 1e-6,
+                                    banded=banded)
+    if banded:  # the kernel takes the tiles as they are built: contiguous
+        assert Lb.b_w.is_contiguous() and Lb.b_w_t.is_contiguous()
+    for f in La._fields:
+        x, y = getattr(La, f), getattr(Lb, f)
+        if x is None:
+            assert y is None, f
+            continue
+        x, y = np.asarray(x), y[0].numpy()
+        if x.dtype.kind in "bi":
+            np.testing.assert_array_equal(x, y, err_msg=f)  # the same kNN graph
+        else:
+            # exp/sum rounding apart: weights within a few ulp
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6, err_msg=f)
+
+
+@pytest.mark.parametrize("banded", [False, True])
+def test_pcg_on_carried_laplacian(banded):
+    """One JAX-built Laplacian goes through both solvers (independent of
+    kNN ties): the matvec, the Jacobi diagonal and the PCG solution agree."""
+    pts, m = _tree_cloud()
+    La = jlap.point_cloud_laplacian(jnp.asarray(pts), jnp.asarray(m), 12, 1e-6, banded=banded)
+    Lc = _carry(La)
+    rng = np.random.default_rng(6)
+    n = len(pts)
+    wl = rng.uniform(1, 3, n).astype(np.float32)
+    wh = rng.uniform(0.5, 2, n).astype(np.float32)
+    b = (wh * wh)[:, None] * pts
+    twl, twh = torch.as_tensor(wl)[None], torch.as_tensor(wh)[None]
+    mv_j = np.asarray(jsp.normal_matvec(La, jnp.asarray(wl), jnp.asarray(wh), jnp.asarray(pts)))
+    mv_t = tsp.normal_matvec(Lc, twl, twh, torch.as_tensor(pts)[None])[0].numpy()
+    # Lᵀ·WL²·L·x cancels (deg·x − W·x): relative to the operator's scale
+    np.testing.assert_allclose(mv_t, mv_j, rtol=0, atol=1e-4 * np.abs(mv_j).max())
+    d_j = np.asarray(jsp.normal_diag(La, jnp.asarray(wl), jnp.asarray(wh)))
+    d_t = tsp.normal_diag(Lc, twl, twh)[0].numpy()
+    np.testing.assert_allclose(d_t, d_j, rtol=1e-6)
+    x_j, r_j = jsp.pcg((La, jnp.asarray(wl), jnp.asarray(wh)), jnp.asarray(b), jnp.asarray(d_j),
+                       x0=jnp.asarray(pts), tol=3e-4, max_iters=40)
+    x_t, r_t = tsp.pcg((Lc, twl, twh), torch.as_tensor(b)[None], torch.as_tensor(d_t)[None],
+                       x0=torch.as_tensor(pts)[None], tol=3e-4, max_iters=40)
+    # 40 CG steps amplify summation-order rounding: 1e-3 m on a 3 m cloud
+    np.testing.assert_allclose(x_t[0].numpy(), np.asarray(x_j), rtol=0, atol=1e-3)
+    assert abs(float(r_t[0]) - float(r_j)) <= 0.05 * float(r_j) + 1e-6
+
+
+def test_pcg_freezes_converged_trees():
+    """Batched PCG: a tree that meets its tolerance stops changing while
+    the other keeps iterating (the vmapped while_loop's semantics)."""
+    pts, m = _tree_cloud()
+    L = tlap.point_cloud_laplacian(torch.as_tensor(np.stack([pts, pts])),
+                                   torch.as_tensor(np.stack([m, m])), 12, 1e-6, banded=True)
+    n = len(pts)
+    wl = torch.full((2, n), 2.0)
+    wh = torch.full((2, n), 1.0)
+    x_true = torch.as_tensor(np.stack([pts, pts]))
+    b = tsp.normal_matvec(L, wl, wh, x_true)
+    x0 = torch.stack([x_true[0], x_true[1] + 0.1])  # tree 0 starts at the solution
+    diag = tsp.normal_diag(L, wl, wh)
+    x, r = tsp.pcg((L, wl, wh), b, diag, x0=x0, tol=1e-4, max_iters=30)
+    assert torch.equal(x[0], x0[0])
+    assert float(r[1]) < 0.1 and not torch.equal(x[1], x0[1])
+
+
+@pytest.mark.gpu
+def test_band_matvec_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (run chip_smoke.py on the card)")
+    b_w, x = _band_inputs(7, t=2, nb=5)
+    tb, tx = torch.as_tensor(b_w, device="cuda"), torch.as_tensor(x, device="cuda")
+    before = bm.LAUNCHES
+    y = bm.band_apply(tb, tx)
+    assert bm.LAUNCHES == before + 1
+    ref = bm.band_matvec_plain(tb.cpu(), tx.cpu())
+    assert torch.all((y.cpu() - ref).abs() <= 768 * 2.0 ** -24 * torch.as_tensor(_scale(b_w, x)))

@@ -1,0 +1,111 @@
+"""Static checks of the PyTorch port: it imports neither JAX nor the JAX
+package, its entry points default to the card, and its config mirrors the
+JAX package's."""
+
+import ast
+import dataclasses
+import inspect
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "pyqsm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = {m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "pyqsm_tpu")}
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def _entry_points():
+    from pyqsm_tpu_torch import convert
+    from pyqsm_tpu_torch.models import isolation, plot_pipeline, skeleton
+
+    return [plot_pipeline.process_plot, isolation.build_trees, skeleton.extract_skeleton_batch,
+            convert.state_from_numpy]
+
+
+@pytest.mark.parametrize("fn", range(4))
+def test_entry_points_default_to_cuda(fn):
+    f = _entry_points()[fn]
+    assert inspect.signature(f).parameters["device"].default == "cuda", f.__qualname__
+
+
+def test_cuda_without_card_raises():
+    """No silent CPU fallback: asking for the card without one raises."""
+    from pyqsm_tpu_torch.device import resolve_device
+    from pyqsm_tpu_torch.models.plot_pipeline import process_plot
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        process_plot(torch.zeros(4, 3), torch.ones(4, dtype=torch.bool))
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The CUDA wrapper launches or raises; only band_apply picks the plain
+    version, and only for CPU tensors (no launch counted)."""
+    from pyqsm_tpu_torch.ops import band_matvec as bm
+
+    b_w = torch.zeros(1, 2, 256, 768)
+    x = torch.ones(1, 512, 3)
+    with pytest.raises(ValueError):
+        bm.band_matvec_cuda(b_w, x)
+    before = bm.LAUNCHES
+    assert torch.equal(bm.band_apply(b_w, x), torch.zeros(1, 512, 3))
+    assert bm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kind", ["point_cloud", "cylinders"])
+def test_state_from_numpy_carries_containers(kind):
+    """The JAX package's PointCloud and Cylinders, as dicts of numpy arrays,
+    become the port's containers field by field."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    import pyqsm_tpu.state as js
+
+    from pyqsm_tpu_torch.convert import state_from_numpy
+
+    rng = np.random.default_rng(0)
+    if kind == "point_cloud":
+        src = js.PointCloud.create(rng.normal(size=(10, 3)).astype(np.float32), capacity=16)
+    else:
+        m = 6
+        src = js.Cylinders(center=jnp.asarray(rng.normal(size=(m, 3)), jnp.float32),
+                           axis=jnp.ones((m, 3)), height=jnp.ones(m), radius=jnp.full(m, 0.2),
+                           branch_order=jnp.zeros(m, jnp.int32), parent=jnp.full(m, -1, jnp.int32),
+                           mask=jnp.arange(m) < 4)
+    arrays = {f: np.asarray(v) for f, v in vars(src).items() if v is not None}
+    out = state_from_numpy(kind, arrays, device="cpu")
+    for f, v in arrays.items():
+        np.testing.assert_array_equal(getattr(out, f).numpy(), v)
+
+
+def test_config_matches_jax_package():
+    import pyqsm_tpu.config as jc
+
+    import pyqsm_tpu_torch.config as tc
+    from pyqsm_tpu_torch.convert import config_from_reference
+
+    path = ROOT / "configs" / "default.toml"
+    assert dataclasses.asdict(jc.load_config(path)) == dataclasses.asdict(tc.load_config(path))
+    ref = jc.Config().replace(isolation=jc.IsolationConfig(max_dist=0.2, cycles=400))
+    assert dataclasses.asdict(config_from_reference(dataclasses.asdict(ref))) == \
+        dataclasses.asdict(ref)
