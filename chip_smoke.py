@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py [--points N] [--seed S]
 
-Phases, each printing one line with its elapsed seconds:
+Phases, each printing lines with the elapsed seconds:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` builds ``csrc/band_matvec.cu`` for sm_90a (ptxas lines);
-3. kernel: ``band_matvec`` against its plain version at the contraction's
-   fine [8, 160, 256, 768] and coarse [8, 40, 256, 768] band shapes, timed
-   with CUDA events beside its memory bound and one ``torch.bmm`` of the
-   same windows;
+2. build: one ``nvcc`` per kernel source, all started together, for sm_90a
+   (``csrc/band_matvec.cu``, ``csrc/band_matvec_t.cu``, ``csrc/mt_raycast.cu``;
+   ptxas registers, shared memory and spills of each);
+3. kernel: ``band_matvec`` and ``band_matvec_t`` against their plain
+   versions at the contraction's fine [8, 160, 256, 768] and coarse
+   [8, 40, 256, 768] band shapes, timed with CUDA events beside their
+   memory bound and one ``torch.bmm`` of the same tiles;
 4. reference: ``process_plot`` on a small two-tree plot on the card and on
    the CPU (the port's plain path) — same tree ids and point counts;
 5. main path: ``process_plot`` on a synthetic plot (the bench's layout and
    settings: 8 trees, 40 000-point skeleton cap) with every kernel launch
-   counter set to 0 just before and read just after.
+   counter set to 0 just before and read just after;
+6. Lᵀ path: ``laplacian_rmatvec`` on a banded Laplacian at the fine width
+   with its Wᵀ band dropped (through ``band_matvec_t``) against the Wᵀ-band
+   route (through ``band_matvec``), counters set to 0 just before;
+7. raycast path: the main path's canopy (z > 6 m) meshed by
+   ``poisson_like_mesh`` and decimated below 2048 triangles, then
+   ``cast_scene`` (640×480), ``sun_exposure`` at elevations 30/60/90 with
+   both backends, ``mri_slices``, ``sparse_cast_with_intersections`` and
+   ``raycast_to_pcd``, counters set to 0 just before;
+8. kernel: ``mt_raycast`` against its plain version at the cast_scene and
+   sun shapes on that mesh, timed beside its operation bound.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -40,6 +52,7 @@ T0 = time.perf_counter()
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 N_TREES = 8  # the bench's plot layout
+MT_OPS_PER_PAIR = 46  # float32 ops per ray-triangle pair in csrc/mt_raycast.cu
 BUDGET_S = 1000  # wall-clock limit of the whole script, build included
 
 
@@ -108,19 +121,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_band_matvec(bm, shape, seed: int) -> dict:
-    """Kernel vs plain version on seeded inputs at one band shape, then
-    timings of the kernel, the plain version and one ``torch.bmm``."""
+def band_inputs(bm, shape, seed: int):
     import torch
 
     t, nb = shape
-    n = nb * bm.BAND_BLOCK
     g = torch.Generator(device="cuda").manual_seed(seed)
     b_w = torch.rand(t, nb, bm.BAND_BLOCK, 3 * bm.BAND_BLOCK, generator=g, device="cuda")
-    x = torch.randn(t, n, 3, generator=g, device="cuda")
-    y = bm.band_matvec_cuda(b_w, x)
-    ref = bm.band_matvec_plain(b_w, x)
-    mag = bm.band_matvec_plain(b_w, x.abs())  # Σ_j |W_ij| |x_j| per row
+    x = torch.randn(t, nb * bm.BAND_BLOCK, 3, generator=g, device="cuda")
+    return b_w, x
+
+
+def check_band(bm, shape, seed: int, transpose: bool) -> dict:
+    """Kernel vs plain version (W x, or Wᵀ x from the forward tiles) on
+    seeded inputs at one band shape, then timings of the kernel, the plain
+    version and one ``torch.bmm`` of the same tiles."""
+    import torch
+
+    t, nb = shape
+    b_w, x = band_inputs(bm, shape, seed)
+    kernel, plain = ((bm.band_matvec_t_cuda, bm.band_matvec_t_plain) if transpose
+                     else (bm.band_matvec_cuda, bm.band_matvec_plain))
+    y = kernel(b_w, x)
+    ref = plain(b_w, x)
+    mag = plain(b_w, x.abs())  # Σ |W||x| per output row
     torch.cuda.synchronize()
     err = (y - ref).abs()
     max_abs = float(err.max())
@@ -128,19 +151,193 @@ def check_band_matvec(bm, shape, seed: int) -> dict:
     # f32 sums of 768 terms in two different orders: each is within
     # 768·2⁻²⁴·Σ|W||x| of the exact value
     tol = 768 * 2.0 ** -24 * float(mag.max())
-    xw = bm._windows(x, nb).reshape(t * nb, 3 * bm.BAND_BLOCK, 3)
     w2 = b_w.reshape(t * nb, bm.BAND_BLOCK, 3 * bm.BAND_BLOCK)
-    ms = time_ms(lambda: bm.band_matvec_cuda(b_w, x))
-    plain_ms = time_ms(lambda: bm.band_matvec_plain(b_w, x))
-    library_ms = time_ms(lambda: torch.bmm(w2, xw))
+    if transpose:
+        # yardstick only: the three partial products per tile, without
+        # their fold into output blocks (no one PyTorch call does both)
+        xb = x.reshape(t * nb, bm.BAND_BLOCK, 3)
+        lib = lambda: torch.bmm(w2.transpose(1, 2), xb)  # noqa: E731
+    else:
+        xw = bm._windows(x, nb).reshape(t * nb, 3 * bm.BAND_BLOCK, 3)
+        lib = lambda: torch.bmm(w2, xw)  # noqa: E731
+    ms = time_ms(lambda: kernel(b_w, x))
+    plain_ms = time_ms(lambda: plain(b_w, x))
+    bmm_ms = time_ms(lib)
     nbytes = b_w.numel() * 4 + x.numel() * 4 + y.numel() * 4
     flops = 2 * b_w.numel() * 3
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
     return dict(shape=[t, nb, bm.BAND_BLOCK, 3 * bm.BAND_BLOCK], max_abs_err=max_abs,
                 max_rel_err=max_rel, tol=tol, ok=max_abs <= tol and bool(torch.isfinite(y).all()),
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                ms=ms, plain_ms=plain_ms, bmm_ms=bmm_ms,
                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                 gbytes=nbytes / 1e9)
+
+
+def check_lt_path(bm, sp, lap, seed: int, n_trees: int, nb: int) -> dict:
+    """Lᵀ x of a banded Laplacian at the contraction's fine width with its
+    Wᵀ band dropped (``band_matvec_t``) against the Wᵀ-band route
+    (``band_matvec``); the counters are set to 0 just before."""
+    import math
+
+    import torch
+
+    n = nb * bm.BAND_BLOCK
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    th = torch.rand(n_trees, n, generator=g, device="cuda") * (2 * math.pi)
+    z = torch.rand(n_trees, n, generator=g, device="cuda") * 6.0
+    r = 0.3 + 0.01 * torch.randn(n_trees, n, generator=g, device="cuda")
+    pts = torch.stack([r * torch.cos(th), r * torch.sin(th), z], -1)
+    mask = torch.ones(n_trees, n, dtype=torch.bool, device="cuda")
+    perm = torch.argsort(sp.morton_codes(pts, mask), dim=1, stable=True)
+    pts = torch.gather(pts, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
+    L = lap.point_cloud_laplacian(pts, mask, 20, 1e-6, banded=True)
+    x = torch.randn(n_trees, n, 3, generator=g, device="cuda")
+    L_no_t = L._replace(b_w_t=None)
+    torch.cuda.synchronize()
+    bm.LAUNCHES = bm.LAUNCHES_T = 0
+    y_t = sp.laplacian_rmatvec(L_no_t, x)
+    torch.cuda.synchronize()
+    launches_t, launches_fwd = bm.LAUNCHES_T, bm.LAUNCHES
+    y_ref = sp.laplacian_rmatvec(L, x)
+    mag = (L.deg[..., None] * x.abs() + bm.band_matvec_t_plain(L.b_w.abs(), x.abs())
+           + sp._spill_apply(L.st_i, L.st_j, L.st_w.abs(), x.abs(), n, transpose=True))
+    err = float((y_t - y_ref).abs().max())
+    tol = 768 * 2.0 ** -24 * float(mag.max())
+    return dict(launches=launches_t, fwd_launches=launches_fwd, max_abs_err=err, tol=tol,
+                ok=err <= tol and bool(torch.isfinite(y_t).all()),
+                spill_overflow=bool(L.s_overflow.any()), shape=list(L.b_w.shape))
+
+
+def check_mt_raycast(mt, origins, dirs, mesh, label: str) -> dict:
+    """Kernel vs plain version on one ray bundle: tri and count equal on
+    every ray, t/u/v compared bit for bit; then timings and the operation
+    bound from this bundle's rays and this mesh's triangles."""
+    import torch
+
+    o, d = origins.contiguous(), dirs.contiguous()
+    got = mt.mt_raycast_cuda(o, d, mesh.vertices, mesh.triangles)
+    want = mt.mt_raycast_plain(o, d, mesh.vertices, mesh.triangles)
+    torch.cuda.synchronize()
+    t_k, tri_k, uv_k, cnt_k = got
+    t_p, tri_p, uv_p, cnt_p = want
+    same_miss = torch.equal(torch.isfinite(t_k), torch.isfinite(t_p))
+    fin = torch.isfinite(t_p)
+    t_err = float((t_k[fin] - t_p[fin]).abs().max()) if bool(fin.any()) else 0.0
+    t_rel = float(((t_k[fin] - t_p[fin]).abs() / t_p[fin].abs()).max()) if bool(fin.any()) else 0.0
+    uv_err = float((uv_k - uv_p).abs().max()) if uv_k.numel() else 0.0
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    ok = (torch.equal(tri_k, tri_p) and torch.equal(cnt_k, cnt_p) and same_miss
+          and t_rel <= 1e-6 and uv_err <= 1e-6)
+    ms = time_ms(lambda: mt.mt_raycast_cuda(o, d, mesh.vertices, mesh.triangles), iters=10)
+    plain_ms = time_ms(lambda: mt.mt_raycast_plain(o, d, mesh.vertices, mesh.triangles),
+                       iters=3, warmup=1)
+    r, n_tri = o.shape[0], mesh.triangles.shape[0]
+    ops = r * n_tri * MT_OPS_PER_PAIR
+    nbytes = r * (24 + 20) + n_tri * 40  # rays in, hits out, the triangle table once
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
+    return dict(label=label, rays=r, triangles=n_tri, ok=ok, bitwise=bitwise,
+                tri_equal=torch.equal(tri_k, tri_p), count_equal=torch.equal(cnt_k, cnt_p),
+                max_abs_err=max(t_err, uv_err), t_max_rel=t_rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                hit_rays=int(fin.sum()), grays_s=r / (ms * 1e-3) / 1e9)
+
+
+def raycast_path(tr, tmr, rg, vm, mt, pts, cfg, seed: int) -> dict:
+    """The ray-casting path on the main path's canopy; mt_raycast's counter
+    is set to 0 just before the casts and read just after."""
+    import torch
+
+    torch.cuda.synchronize()
+    canopy = pts[pts[:, 2] > 6.0]
+    t0 = time.perf_counter()
+    raw = vm.poisson_like_mesh(canopy, voxel=0.12, blur_iters=1)
+    mesh = vm.simplify_mesh(raw, target_triangles=2000)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    # the field is a count splat (float32 sums of ones, exact in any atomic
+    # order) and elementwise blurs: a rebuild on the card must be identical
+    raw2 = vm.poisson_like_mesh(canopy, voxel=0.12, blur_iters=1)
+    rebuild_equal = torch.equal(raw.vertices, raw2.vertices) and \
+        torch.equal(raw.triangles, raw2.triangles)
+    del raw2
+    n_raw, n_tri = raw.n_triangles(), mesh.n_triangles()
+    log("raycast", f"canopy {canopy.shape[0]} points -> raw mesh {n_raw} triangles -> "
+        f"decimated {n_tri} triangles, {mesh.vertices.shape[0]} vertices in {mesh_s:.3f}s; "
+        f"rebuild on the card identical: {rebuild_equal}")
+    out = dict(mesh=mesh, n_raw=n_raw, n_tri=n_tri, mesh_s=mesh_s, rebuild_equal=rebuild_equal)
+    if not 1000 <= n_tri < 2048:
+        fail(f"decimated mesh has {n_tri} triangles, expected 1000-2047")
+
+    def timed(name, fn, rays):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        log("raycast", f"{name}: {sec:.4f}s, {rays} rays, {rays / sec / 1e6:.2f} Mrays/s")
+        out.setdefault("casts", {})[name] = dict(s=sec, rays=rays)
+        return r
+
+    torch.cuda.reset_peak_memory_stats()
+    mt.LAUNCHES = 0
+    scene = timed("cast_scene 640x480", lambda: tmr.cast_scene(mesh, cfg=cfg, device="cuda"),
+                  cfg.width_px * cfg.height_px)
+    # the first cast carries the process's first-use costs; the repeat is steady
+    timed("cast_scene 640x480 repeat", lambda: tmr.cast_scene(mesh, cfg=cfg, device="cuda"),
+          cfg.width_px * cfg.height_px)
+    sun = {}
+    for el in (30.0, 60.0, 90.0):
+        for backend in ("brute", "grid"):
+            sun[(el, backend)] = timed(
+                f"sun_exposure az 180 el {el:g} {backend} 256x256",
+                lambda: tmr.sun_exposure(mesh, 180.0, el, 256, 256, backend=backend,
+                                         device="cuda"), 256 * 256)
+    mri = timed("mri_slices 8x64x64", lambda: tmr.mri_slices(mesh, n_slices=8, resolution=64,
+                                                             device="cuda"), 8 * 64 * 64)
+    hl, cross = timed("sparse_cast_with_intersections 64x64 k8",
+                      lambda: tmr.sparse_cast_with_intersections(mesh, 64, 64, 8,
+                                                                 device="cuda"), 64 * 64)
+    pcd = timed("raycast_to_pcd", lambda: tmr.raycast_to_pcd(mesh, scene.hits, device="cuda"),
+                cfg.width_px * cfg.height_px)
+    torch.cuda.synchronize()
+    out["launches"] = mt.LAUNCHES
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("raycast", f"cast_scene hit fraction {scene.hit_fraction:.6f}, exposed area 3D "
+        f"{scene.surface_area_3d:.4f} m², 2D {scene.surface_area_2d:.4f} m²; "
+        f"mt_raycast launches {out['launches']}; max_memory_allocated {out['peak_gib']:.3f} GiB")
+    for el in (30.0, 60.0, 90.0):
+        b, g = sun[(el, "brute")], sun[(el, "grid")]
+        grid_used = True
+        try:
+            rg.build_ray_grid(mesh.vertices, mesh.triangles, tmr._sun_direction(180.0, el),
+                              cell_cap=256)
+        except ValueError:
+            grid_used = False
+        log("raycast", f"sun el {el:g}: brute frac {b.hit_fraction:.6f} areas "
+            f"{b.surface_area_3d:.4f}/{b.surface_area_2d:.4f}; grid (built: {grid_used}) frac "
+            f"{g.hit_fraction:.6f} areas {g.surface_area_3d:.4f}/{g.surface_area_2d:.4f}")
+        if b.hit_fraction != g.hit_fraction or any(
+                abs(x - y) > 1e-4 * abs(x) for x, y in ((b.surface_area_3d, g.surface_area_3d),
+                                                        (b.surface_area_2d, g.surface_area_2d))):
+            fail(f"sun exposure at elevation {el:g}: brute and grid backends disagree")
+    fin_mri = bool(torch.isfinite(mri).all())
+    n_cross = int((hl.tri >= 0).sum())
+    log("raycast", f"mri_slices {tuple(mri.shape)} finite {fin_mri}, inside share "
+        f"{float((mri < 0).float().mean()):.4f}; sparse cast {n_cross} crossings, max count "
+        f"{int(hl.count.max())}; hit cloud {int(torch.isfinite(pcd).all(1).sum())} points")
+    areas = (scene.surface_area_3d, scene.surface_area_2d)
+    if not scene.hit_fraction > 0 or not all(map(lambda a: a == a and abs(a) < float("inf"),
+                                                 areas)):
+        fail("cast_scene: no hits or non-finite exposed areas")
+    if not fin_mri or mri.shape != (8, 64, 64) or n_cross <= 0:
+        fail("mri_slices or the sparse cast gave no usable result")
+    if tuple(cross.shape) != (64 * 64, 8, 3) or pcd.shape != (cfg.width_px * cfg.height_px, 3):
+        fail("sparse cast or hit cloud of the wrong shape")
+    if out["launches"] <= 0:
+        fail("the raycast path never launched mt_raycast")
+    out["scene"] = scene
+    return out
 
 
 def main() -> None:
@@ -164,9 +361,17 @@ def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from pyqsm_tpu_torch.config import Config, IsolationConfig
+        from pyqsm_tpu_torch.config import Config, IsolationConfig, RaycastConfig
+        from pyqsm_tpu_torch.models import raycast as tmr
         from pyqsm_tpu_torch.models.plot_pipeline import process_plot
         from pyqsm_tpu_torch.ops import band_matvec as bm
+        from pyqsm_tpu_torch.ops import cuda_build
+        from pyqsm_tpu_torch.ops import laplacian as lap
+        from pyqsm_tpu_torch.ops import mt_raycast as mt
+        from pyqsm_tpu_torch.ops import raygrid as rg
+        from pyqsm_tpu_torch.ops import raytrace as tr
+        from pyqsm_tpu_torch.ops import sparse as sp
+        from pyqsm_tpu_torch.ops import voxelmesh as vm
     except ImportError as exc:
         fail(f"the pyqsm_tpu_torch package is not beside this script ({exc})", 3)
 
@@ -179,29 +384,33 @@ def main() -> None:
         else f"nvidia-smi unavailable (rc {smi.returncode})"
     log("device", f"{kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}; {smi_line}")
 
-    # 2. kernel build from the checkout's sources
+    # 2. kernel builds from the checkout's sources, one nvcc each, in parallel
     t_build = time.perf_counter()
-    so = bm.build()
-    bm._load()
-    ptxas = [ln.strip() for ln in bm.BUILD_LOG.splitlines()
-             if any(w in ln for w in ("registers", "spill", "smem", "Compiling entry"))]
-    log("build", f"{so.name} in {time.perf_counter() - t_build:.2f}s")
-    for ln in ptxas:
-        print(f"    ptxas: {ln}", flush=True)
+    libs = {"band_matvec": bm.LIB, "band_matvec_t": bm.LIB_T, "mt_raycast": mt.LIB}
+    paths = cuda_build.build_all(libs.values())
+    for lib in libs.values():
+        lib.load()
+    log("build", f"{[p.name for p in paths]} in {time.perf_counter() - t_build:.2f}s")
+    for name, lib in libs.items():
+        for ln in lib.log.splitlines():
+            if any(w in ln for w in ("registers", "spill", "smem", "Compiling entry")):
+                print(f"    ptxas {name}: {ln.strip()}", flush=True)
 
-    # 3. kernel vs plain at the path's shapes
+    # 3. band kernels vs plain at the path's shapes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = {}
-    for name, nb in (("fine", 160), ("coarse", 40)):
-        c = check_band_matvec(bm, (N_TREES, nb), args.seed)
-        checks[name] = c
-        log("kernel", f"band_matvec {name} {c['shape']}: max_abs_err {c['max_abs_err']:.3e} "
-            f"(tol {c['tol']:.3e}), max_rel_err {c['max_rel_err']:.3e}; kernel {c['ms']:.4f} ms, "
-            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}, {c['gbytes']:.3f} GB), "
-            f"plain {c['plain_ms']:.4f} ms, torch.bmm {c['library_ms']:.4f} ms")
-        if not c["ok"]:
-            fail(f"band_matvec {name}: kernel disagrees with its plain version")
+    for kname, transpose in (("band_matvec", False), ("band_matvec_t", True)):
+        for name, nb in (("fine", 160), ("coarse", 40)):
+            c = check_band(bm, (N_TREES, nb), args.seed, transpose)
+            checks[(kname, name)] = c
+            log("kernel", f"{kname} {name} {c['shape']}: max_abs_err {c['max_abs_err']:.3e} "
+                f"(tol {c['tol']:.3e}), max_rel_err {c['max_rel_err']:.3e}; kernel "
+                f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+                f"{c['gbytes']:.3f} GB), plain {c['plain_ms']:.4f} ms, torch.bmm "
+                f"{c['bmm_ms']:.4f} ms")
+            if not c["ok"]:
+                fail(f"{kname} {name}: kernel disagrees with its plain version")
 
     # 4. small-input reference: the card against the port's CPU path
     small = two_tree_plot(args.seed)
@@ -232,7 +441,7 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log("main", f"process_plot on {pts.shape[0]} points, {N_TREES} trees")
-    bm.LAUNCHES = 0
+    bm.LAUNCHES = bm.LAUNCHES_T = mt.LAUNCHES = 0
     t_main = time.perf_counter()
     res = process_plot(pts, mask, Config(), iso_cfg, skeleton_voxel=0.03,
                        max_skeleton_points=40_000, min_tree_points=2000,
@@ -256,15 +465,69 @@ def main() -> None:
     if launches <= 0:
         fail("the main path never launched band_matvec")
 
-    fine = checks["fine"]
-    kernels = [dict(
-        name="band_matvec", route="cuda", source="pyqsm_tpu_torch/csrc/band_matvec.cu",
-        replaces="pyqsm_tpu/ops/pallas_kernels.py:183", launches=launches,
-        max_abs_err=max(c["max_abs_err"] for c in checks.values()),
-        ms=fine["ms"], plain_ms=fine["plain_ms"], bound_ms=fine["bound_ms"],
-        bound_by=fine["bound_by"], library_ms=fine["library_ms"], check="pass",
-        shape=fine["shape"], coarse={k: checks["coarse"][k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")})]
+    # 6. the Lᵀ path without a Wᵀ band: band_matvec_t against band_matvec
+    lt = check_lt_path(bm, sp, lap, args.seed, N_TREES, 160)
+    log("lt_path", f"laplacian_rmatvec {lt['shape']} without b_w_t: band_matvec_t launches "
+        f"{lt['launches']} (band_matvec {lt['fwd_launches']}), max_abs_err vs the Wᵀ-band "
+        f"route {lt['max_abs_err']:.3e} (tol {lt['tol']:.3e}); spill overflow "
+        f"{lt['spill_overflow']}")
+    if not lt["ok"]:
+        fail("Lᵀ x through band_matvec_t disagrees with the Wᵀ-band route")
+    if lt["launches"] <= 0 or lt["fwd_launches"] != 0:
+        fail("the Lᵀ path without a Wᵀ band did not run through band_matvec_t alone")
+
+    # 7. the raycast path on the main path's canopy
+    cfg = RaycastConfig()
+    ray = raycast_path(tr, tmr, rg, vm, mt, pts, cfg, args.seed)
+    mesh = ray["mesh"]
+
+    # 8. mt_raycast vs plain at the path's shapes on that mesh
+    v = mesh.vertices
+    center = v.mean(dim=0)
+    cam = tr.pinhole_rays(center + torch.tensor([0.0, 0.0, 10.0], device="cuda"), center,
+                          [0.0, 1.0, 0.0], cfg.fov_deg, cfg.width_px, cfg.height_px,
+                          device="cuda")
+    sun = tr.parallel_rays(v.amin(0), v.amax(0), tmr._sun_direction(180.0, 60.0), 256, 256,
+                           device="cuda")
+    mts = {}
+    for label, (o, d) in (("cast_scene", cam), ("sun", sun)):
+        c = check_mt_raycast(mt, o, d, mesh, label)
+        mts[label] = c
+        log("kernel", f"mt_raycast {label} {c['rays']} rays x {c['triangles']} triangles: "
+            f"{c['hit_rays']} hit; tri equal {c['tri_equal']}, count equal "
+            f"{c['count_equal']}, bit for bit {c['bitwise']}, max_abs_err "
+            f"{c['max_abs_err']:.3e} (t max rel {c['t_max_rel']:.3e}); kernel {c['ms']:.4f} ms "
+            f"({c['grays_s']:.3f} Grays/s), bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+            f"{MT_OPS_PER_PAIR} ops per pair), plain {c['plain_ms']:.4f} ms")
+        if not c["ok"]:
+            fail(f"mt_raycast {label}: kernel disagrees with its plain version")
+
+    def band_entry(kname, source, replaces, n_launches):
+        fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]
+        return dict(
+            name=kname, route="cuda", source=source, replaces=replaces, launches=n_launches,
+            max_abs_err=max(fine["max_abs_err"], coarse["max_abs_err"]),
+            ms=fine["ms"], plain_ms=fine["plain_ms"], bound_ms=fine["bound_ms"],
+            bound_by=fine["bound_by"],
+            library_ms=None if kname == "band_matvec_t" else fine["bmm_ms"],
+            bmm_ms=fine["bmm_ms"], check="pass", shape=fine["shape"],
+            coarse={k: coarse[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bmm_ms",
+                                           "max_abs_err")})
+
+    cs, sn = mts["cast_scene"], mts["sun"]
+    kernels = [
+        band_entry("band_matvec", "pyqsm_tpu_torch/csrc/band_matvec.cu",
+                   "pyqsm_tpu/ops/pallas_kernels.py:183", launches),
+        band_entry("band_matvec_t", "pyqsm_tpu_torch/csrc/band_matvec_t.cu",
+                   "pyqsm_tpu/ops/pallas_kernels.py:227", lt["launches"]),
+        dict(name="mt_raycast", route="cuda", source="pyqsm_tpu_torch/csrc/mt_raycast.cu",
+             replaces="pyqsm_tpu/ops/pallas_kernels.py:110", launches=ray["launches"],
+             max_abs_err=max(cs["max_abs_err"], sn["max_abs_err"]), ms=cs["ms"],
+             plain_ms=cs["plain_ms"], bound_ms=cs["bound_ms"], bound_by=cs["bound_by"],
+             library_ms=None, check="pass", shape=[cs["rays"], cs["triangles"]],
+             sun={k: sn[k] for k in ("rays", "triangles", "ms", "plain_ms", "bound_ms",
+                                     "max_abs_err")}),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     signal.alarm(0)

@@ -15,6 +15,7 @@ import torch
 
 from pyqsm_tpu_torch.config import _SECTION_TYPES, Config
 from pyqsm_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from pyqsm_tpu_torch.ops.mesh import TriMesh
 from pyqsm_tpu_torch.ops.sparse import ELLLaplacian
 from pyqsm_tpu_torch.state import Cylinders, PointCloud
 
@@ -56,3 +57,17 @@ def state_from_numpy(kind: str, arrays: dict, batched: bool = False,
             t = t[None]
         out[f] = t
     return cls(**out)
+
+
+def mesh_from_numpy(vertices, triangles, device: str | torch.device = DEFAULT_DEVICE) -> TriMesh:
+    """The port's ``TriMesh`` from the JAX package's (its ``vertices`` and
+    ``triangles`` as numpy arrays): float32 [V, 3] and int32 [T, 3]."""
+    dev = resolve_device(device)
+    return TriMesh(torch.as_tensor(np.asarray(vertices, np.float32), device=dev),
+                   torch.as_tensor(np.asarray(triangles, np.int32), device=dev))
+
+
+def hits_to_numpy(hits) -> dict:
+    """The port's ``Hits`` or ``HitList`` as a dict of numpy arrays keyed by
+    field name, the form the JAX package's containers compare against."""
+    return {f: getattr(hits, f).cpu().numpy() for f in hits._fields}

@@ -1,89 +1,32 @@
-"""Block-banded matvec: the hand-written CUDA kernel, its plain PyTorch
-version, its launch counter and its loader.
+"""Block-banded matvec and its transpose: the hand-written CUDA kernels,
+their plain PyTorch versions and their launch counters.
 
-Replaces ``pyqsm_tpu/ops/pallas_kernels.py:183`` ``band_matvec_pallas``.
-``band_apply`` is the one entry the port calls: a CUDA tensor goes to the
-kernel (or the call raises), a CPU tensor to the plain version.
+- ``band_apply`` (y = W x) replaces ``pyqsm_tpu/ops/pallas_kernels.py:183``
+  ``band_matvec_pallas``; kernel ``csrc/band_matvec.cu``.
+- ``band_apply_t`` (y = Wᵀ x from the forward tiles) replaces
+  ``pallas_kernels.py:227`` ``band_matvec_t_pallas``; kernel
+  ``csrc/band_matvec_t.cu``.
 
-The kernel (``csrc/band_matvec.cu``) has a plain C interface: it is built
-with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` beside this
-package (git-ignored) and loaded with ``ctypes`` — seconds, where a source
-that includes PyTorch's headers takes minutes to build.
+Each sends a CUDA tensor to its kernel (or raises) and a CPU tensor to the
+plain version. The kernels are built by ``ops/cuda_build.py``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-
 import torch
+
+from pyqsm_tpu_torch.ops.cuda_build import I, P, CudaLib
 
 BAND_BLOCK = 256  # rows per band block; window = 3 blocks
 
-# Launches of the CUDA kernel by ``band_matvec_cuda`` (the only place that
-# launches it). Reset and read by callers that want to prove the path ran.
-LAUNCHES = 0
+# Launches of each CUDA kernel, counted by its ``*_cuda`` wrapper (the only
+# place that launches it). Reset and read by callers that want to prove a
+# path ran through the kernel.
+LAUNCHES = 0  # band_matvec
+LAUNCHES_T = 0  # band_matvec_t
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "band_matvec.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-BUILD_LOG = ""  # nvcc/ptxas output of the build this process loaded
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the band_matvec kernel is built from "
-                       "csrc/band_matvec.cu with the CUDA toolkit's nvcc")
-
-
-def build() -> Path:
-    """Compile the kernel (cached by source and flags) and return the .so.
-    Raises with nvcc's output when the build fails."""
-    global BUILD_LOG
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libband_matvec_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.band_matvec_f32_c3.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.band_matvec_f32_c3.restype = ctypes.c_int
-        lib.band_matvec_error_string.argtypes = [ctypes.c_int]
-        lib.band_matvec_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIB = CudaLib("band_matvec.cu", {"band_matvec_f32_c3": ([P, P, P, I, I, P], I)})
+LIB_T = CudaLib("band_matvec_t.cu", {"band_matvec_t_f32_c3": ([P, P, P, I, I, P], I)})
 
 
 def _windows(x: torch.Tensor, nb: int) -> torch.Tensor:
@@ -105,29 +48,64 @@ def band_matvec_plain(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(t, nb * bs, x.shape[-1]).to(torch.float32)
 
 
-def band_matvec_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: b_w [T, nb, 256, 768] f32, x [T, nb·256, 3] f32,
-    both contiguous on one CUDA device. Raises on anything else."""
-    global LAUNCHES
+def _check_band(b_w: torch.Tensor, x: torch.Tensor, what: str) -> tuple[int, int]:
+    """Validate kernel inputs; returns (trees, nb). Raises on anything the
+    kernels do not take."""
     if b_w.dim() != 4 or b_w.shape[2:] != (BAND_BLOCK, 3 * BAND_BLOCK):
         raise ValueError(f"b_w must be [T, nb, {BAND_BLOCK}, {3 * BAND_BLOCK}], got {tuple(b_w.shape)}")
     t, nb = b_w.shape[:2]
     if x.shape != (t, nb * BAND_BLOCK, 3):
         raise ValueError(f"x must be [{t}, {nb * BAND_BLOCK}, 3], got {tuple(x.shape)}")
     if b_w.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError("band_matvec kernel takes float32 weights and x (bf16 is not ported)")
+        raise TypeError(f"{what} kernel takes float32 weights and x (bf16 is not ported)")
     if not (b_w.is_cuda and x.is_cuda and b_w.device == x.device):
-        raise ValueError("band_matvec kernel needs b_w and x on one CUDA device")
+        raise ValueError(f"{what} kernel needs b_w and x on one CUDA device")
     if not (b_w.is_contiguous() and x.is_contiguous()) or b_w.data_ptr() % 16:
-        raise ValueError("band_matvec kernel needs contiguous, 16-byte aligned inputs")
-    lib = _load()
+        raise ValueError(f"{what} kernel needs contiguous, 16-byte aligned inputs")
+    return t, nb
+
+
+def _launch(lib: CudaLib, fn: str, b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    t, nb = _check_band(b_w, x, fn)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.band_matvec_f32_c3(b_w.data_ptr(), x.data_ptr(), y.data_ptr(), t, nb, stream)
-    if rc != 0:
-        raise RuntimeError(f"band_matvec launch failed: {lib.band_matvec_error_string(rc).decode()}")
+        rc = getattr(lib.load(), fn)(b_w.data_ptr(), x.data_ptr(), y.data_ptr(), t, nb, stream)
+    lib.check(rc, fn)
+    return y
+
+
+def band_matvec_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The forward kernel: b_w [T, nb, 256, 768] f32, x [T, nb·256, 3] f32,
+    both contiguous on one CUDA device. Raises on anything else."""
+    global LAUNCHES
+    y = _launch(LIB, "band_matvec_f32_c3", b_w, x)
     LAUNCHES += 1
+    return y
+
+
+def band_matvec_t_plain(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the transpose: y[t, j] = Σ_i W_ij x_i read from the
+    forward tiles, as the JAX package's ``_band_apply_t`` einsum
+    (``sparse.py:242-256``): each tile's rows contract against its own x
+    block, and the first/last column thirds land on the previous/next
+    block."""
+    t, nb, bs, _ = b_w.shape
+    c = x.shape[-1]
+    xb = x.reshape(t, nb, bs, c).to(b_w.dtype)
+    contrib = torch.einsum("tbrc,tbrd->tbcd", b_w, xb)  # [T, nb, 3·BS, C]
+    t0, t1, t2 = contrib.split(bs, dim=2)
+    zero = torch.zeros_like(t1[:, :1])
+    acc = t1 + torch.cat([t0[:, 1:], zero], dim=1) + torch.cat([zero, t2[:, :-1]], dim=1)
+    return acc.reshape(t, nb * bs, c).to(torch.float32)
+
+
+def band_matvec_t_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The transpose kernel: the same inputs as ``band_matvec_cuda``;
+    returns Wᵀ x. Raises on anything else."""
+    global LAUNCHES_T
+    y = _launch(LIB_T, "band_matvec_t_f32_c3", b_w, x)
+    LAUNCHES_T += 1
     return y
 
 
@@ -139,3 +117,13 @@ def band_apply(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return band_matvec_plain(b_w, x)
     raise ValueError(f"band_apply: unsupported device {x.device}")
+
+
+def band_apply_t(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Σ_i W_ij x_i from the forward tiles of block-banded W: the kernel for
+    a CUDA tensor, the plain version for a CPU tensor."""
+    if x.is_cuda:
+        return band_matvec_t_cuda(b_w, x.contiguous())
+    if x.device.type == "cpu":
+        return band_matvec_t_plain(b_w, x)
+    raise ValueError(f"band_apply_t: unsupported device {x.device}")

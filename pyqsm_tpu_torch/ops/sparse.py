@@ -4,8 +4,9 @@ operators plus Jacobi-preconditioned CG (counterparts of
 
 Every ``ELLLaplacian`` field carries a leading TREES axis ``[T, ...]`` —
 the written-out form of the JAX package's ``vmap`` over trees. The banded
-apply (``_band_apply``) sends a CUDA tensor to the hand-written kernel in
-``ops/band_matvec.py`` and a CPU tensor to its plain version.
+applies (``band_apply`` and, without a Wᵀ band, ``band_apply_t``) send a
+CUDA tensor to the hand-written kernels in ``ops/band_matvec.py`` and a CPU
+tensor to their plain versions.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from pyqsm_tpu_torch.ops.band_matvec import BAND_BLOCK, band_apply
+from pyqsm_tpu_torch.ops.band_matvec import BAND_BLOCK, band_apply, band_apply_t
 
 
 class ELLLaplacian(NamedTuple):
@@ -206,15 +207,25 @@ def _rmatvec_scatter(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
 
 
 def laplacian_rmatvec(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
-    """Lᵀ @ x: banded (Wᵀ band + column-sorted spill) or transpose-ELL
-    gather (trees whose in-degree overflowed take the exact scatter)."""
+    """Lᵀ @ x, in the JAX package's order of preference
+    (``pyqsm_tpu/ops/sparse.py:362-387``): banded (the Wᵀ band through the forward
+    kernel, or the forward tiles through the transpose kernel when no Wᵀ
+    band was built; the column-sorted spill, or the row-sorted one) →
+    transpose-ELL gather (trees whose in-degree overflowed take the exact
+    scatter) → exact scatter."""
     n = x.shape[1]
     if L.b_w is not None:
-        acc_s = _spill_apply(L.st_i, L.st_j, L.st_w, x, n, transpose=True)
-        return L.deg[..., None] * x - (band_apply(L.b_w_t, x) + acc_s)
+        if L.st_j is not None:
+            acc_s = _spill_apply(L.st_i, L.st_j, L.st_w, x, n, transpose=True)
+        else:
+            acc_s = _spill_apply(L.s_i, L.s_j, L.s_w, x, n, transpose=True)
+        acc_b = band_apply(L.b_w_t, x) if L.b_w_t is not None else band_apply_t(L.b_w, x)
+        return L.deg[..., None] * x - (acc_b + acc_s)
+    if L.t_idx is None:
+        return _rmatvec_scatter(L, x)
     gathered = L.deg[..., None] * x - torch.einsum(
         "tnk,tnkc->tnc", L.t_w, _gather_rows(x, L.t_idx))
-    if not bool(L.t_overflow.any()):
+    if L.t_overflow is None or not bool(L.t_overflow.any()):
         return gathered
     return torch.where(L.t_overflow[:, None, None], _rmatvec_scatter(L, x), gathered)
 

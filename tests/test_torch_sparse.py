@@ -10,7 +10,7 @@ import torch
 
 from pyqsm_tpu.ops import laplacian as jlap
 from pyqsm_tpu.ops import sparse as jsp
-from pyqsm_tpu.ops.pallas_kernels import band_matvec_pallas
+from pyqsm_tpu.ops.pallas_kernels import band_matvec_pallas, band_matvec_t_pallas
 from pyqsm_tpu_torch.convert import state_from_numpy
 from pyqsm_tpu_torch.ops import band_matvec as bm
 from pyqsm_tpu_torch.ops import laplacian as tlap
@@ -61,6 +61,23 @@ def test_band_transpose_matches_jax_transpose_apply():
     y_t = bm.band_apply(bt, torch.as_tensor(x)).numpy()
     y_j = np.asarray(jax.vmap(jsp._band_apply_t)(jnp.asarray(b_w), jnp.asarray(x)))
     np.testing.assert_allclose(y_t, y_j, rtol=0, atol=768 * 2.0 ** -24 * 4 * np.abs(y_j).max())
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+def test_band_matvec_t_plain_matches_pallas_and_einsum(nb):
+    """The transpose's plain version against the Pallas transpose kernel
+    (interpret mode) and the JAX package's einsum route, per tree."""
+    b_w, x = _band_inputs(8, nb=nb)
+    y_t = bm.band_apply_t(torch.as_tensor(b_w), torch.as_tensor(x)).numpy()
+    y_j = np.asarray(jax.vmap(jsp._band_apply_t)(jnp.asarray(b_w), jnp.asarray(x)))
+    y_p = np.stack([np.asarray(band_matvec_t_pallas(jnp.asarray(b_w[i]), jnp.asarray(x[i]),
+                                                    interpret=True)) for i in range(len(b_w))])
+    # f32 sums of at most 768 terms in different orders: each within
+    # 768·2⁻²⁴·Σ_i|W_ij||x_i| of the exact value
+    mag = np.asarray(jax.vmap(jsp._band_apply_t)(jnp.abs(jnp.asarray(b_w)), jnp.abs(jnp.asarray(x))))
+    tol = 2 * 768 * 2.0 ** -24 * mag
+    assert np.all(np.abs(y_t - y_j) <= tol)
+    assert np.all(np.abs(y_t - y_p) <= tol)
 
 
 def _graph(seed, n=1024, k=8, far=0.2):
@@ -160,6 +177,31 @@ def test_pcg_on_carried_laplacian(banded):
     assert abs(float(r_t[0]) - float(r_j)) <= 0.05 * float(r_j) + 1e-6
 
 
+@pytest.mark.parametrize("drop", ["b_w_t", "st", "both"])
+def test_rmatvec_without_wt_band_or_sorted_spill(drop):
+    """A banded Laplacian without its Wᵀ band goes through the transpose
+    apply; one without its column-sorted spill through the unsorted one.
+    Both packages build the Laplacian from one cloud; the port's Lᵀx must
+    equal the JAX package's and the port's own Wᵀ-band route."""
+    pts, m = _tree_cloud()
+    La = jlap.point_cloud_laplacian(jnp.asarray(pts), jnp.asarray(m), 12, 1e-6, banded=True)
+    Lb = tlap.point_cloud_laplacian(torch.as_tensor(pts), torch.as_tensor(m), 12, 1e-6,
+                                    banded=True)
+    cut = {}
+    if drop in ("b_w_t", "both"):
+        cut["b_w_t"] = None
+    if drop in ("st", "both"):
+        cut.update(st_i=None, st_j=None, st_w=None)
+    x = np.random.default_rng(9).normal(size=pts.shape).astype(np.float32)
+    y_j = np.asarray(jsp.laplacian_rmatvec(La._replace(**cut), jnp.asarray(x)))
+    y_full = tsp.laplacian_rmatvec(Lb, torch.as_tensor(x)[None])[0].numpy()
+    y_t = tsp.laplacian_rmatvec(Lb._replace(**cut), torch.as_tensor(x)[None])[0].numpy()
+    # the port's two routes differ only in f32 summation order
+    np.testing.assert_allclose(y_t, y_full, rtol=0, atol=1e-5 * np.abs(y_full).max())
+    # the packages' weights differ by a few ulp (exp/sum rounding)
+    np.testing.assert_allclose(y_t, y_j, rtol=0, atol=1e-4 * np.abs(y_j).max())
+
+
 def test_pcg_freezes_converged_trees():
     """Batched PCG: a tree that meets its tolerance stops changing while
     the other keeps iterating (the vmapped while_loop's semantics)."""
@@ -189,3 +231,17 @@ def test_band_matvec_kernel_matches_plain_on_card():
     assert bm.LAUNCHES == before + 1
     ref = bm.band_matvec_plain(tb.cpu(), tx.cpu())
     assert torch.all((y.cpu() - ref).abs() <= 768 * 2.0 ** -24 * torch.as_tensor(_scale(b_w, x)))
+
+
+@pytest.mark.gpu
+def test_band_matvec_t_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (run chip_smoke.py on the card)")
+    b_w, x = _band_inputs(10, t=2, nb=5)
+    tb, tx = torch.as_tensor(b_w, device="cuda"), torch.as_tensor(x, device="cuda")
+    before = bm.LAUNCHES_T
+    y = bm.band_apply_t(tb, tx)
+    assert bm.LAUNCHES_T == before + 1
+    ref = bm.band_matvec_t_plain(tb.cpu(), tx.cpu())
+    mag = bm.band_matvec_t_plain(tb.cpu().abs(), tx.cpu().abs())
+    assert torch.all((y.cpu() - ref).abs() <= 2 * 768 * 2.0 ** -24 * mag)

@@ -31,15 +31,29 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
+# modules the import scan must cover (the glob above finds every file; this
+# list fails loudly if one of them moves out of its reach)
+REQUIRED = ["ops/band_matvec.py", "ops/cuda_build.py", "ops/mt_raycast.py", "ops/mesh.py",
+            "ops/raytrace.py", "ops/voxelmesh.py", "ops/raygrid.py", "models/raycast.py",
+            "convert.py"]
+
+
+def test_import_scan_covers_every_port_module():
+    scanned = {str(p.relative_to(ROOT / "pyqsm_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert not set(REQUIRED) - scanned
+
+
 def _entry_points():
     from pyqsm_tpu_torch import convert
-    from pyqsm_tpu_torch.models import isolation, plot_pipeline, skeleton
+    from pyqsm_tpu_torch.models import isolation, plot_pipeline, raycast, skeleton
 
     return [plot_pipeline.process_plot, isolation.build_trees, skeleton.extract_skeleton_batch,
-            convert.state_from_numpy]
+            convert.state_from_numpy, convert.mesh_from_numpy, raycast.cast_scene,
+            raycast.sun_exposure, raycast.sun_sweep, raycast.raycast_to_pcd,
+            raycast.sparse_cast_with_intersections, raycast.mri_slices]
 
 
-@pytest.mark.parametrize("fn", range(4))
+@pytest.mark.parametrize("fn", range(11))
 def test_entry_points_default_to_cuda(fn):
     f = _entry_points()[fn]
     assert inspect.signature(f).parameters["device"].default == "cuda", f.__qualname__
@@ -56,6 +70,11 @@ def test_cuda_without_card_raises():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         process_plot(torch.zeros(4, 3), torch.ones(4, dtype=torch.bool))
+    from pyqsm_tpu_torch.models.raycast import cast_scene
+    from pyqsm_tpu_torch.ops.mesh import sphere_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cast_scene(sphere_mesh([0.0, 0, 0], 1.0, device="cpu"))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -70,6 +89,34 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     before = bm.LAUNCHES
     assert torch.equal(bm.band_apply(b_w, x), torch.zeros(1, 512, 3))
     assert bm.LAUNCHES == before
+
+
+def test_transpose_and_raycast_wrappers_refuse_cpu_tensors():
+    """Kernels #2 and #3: the CUDA wrappers launch or raise; the
+    dispatchers pick the plain versions for CPU tensors only, with no
+    launch counted."""
+    from pyqsm_tpu_torch.ops import band_matvec as bm
+    from pyqsm_tpu_torch.ops import mt_raycast as mt
+
+    b_w = torch.zeros(1, 2, 256, 768)
+    x = torch.ones(1, 512, 3)
+    with pytest.raises(ValueError):
+        bm.band_matvec_t_cuda(b_w, x)
+    before = bm.LAUNCHES_T
+    assert torch.equal(bm.band_apply_t(b_w, x), torch.zeros(1, 512, 3))
+    assert bm.LAUNCHES_T == before
+    o = torch.zeros(4, 3)
+    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3).contiguous()
+    verts = torch.zeros(3, 3)
+    tris = torch.full((2, 3), -1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        mt.mt_raycast_cuda(o, d, verts, tris)
+    with pytest.raises(TypeError):
+        mt.mt_raycast_cuda(o, d, verts, tris.long())
+    before = mt.LAUNCHES
+    t, tri, uv, cnt = mt.mt_raycast(o, d, verts, tris)
+    assert not torch.isfinite(t).any() and (tri == -1).all() and (cnt == 0).all()
+    assert mt.LAUNCHES == before
 
 
 @pytest.mark.parametrize("kind", ["point_cloud", "cylinders"])
