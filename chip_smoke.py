@@ -7,8 +7,9 @@ Phases, each printing lines with the elapsed seconds:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` per kernel source, all started together, for sm_90a
-   (``csrc/band_matvec.cu``, ``csrc/band_matvec_t.cu``, ``csrc/mt_raycast.cu``;
-   ptxas registers, shared memory and spills of each);
+   (``csrc/band_matvec.cu``, ``csrc/band_matvec_t.cu``, ``csrc/mt_raycast.cu``,
+   ``csrc/band_matvec_bf16.cu``; ptxas registers, shared memory and spills of
+   each);
 3. kernel: ``band_matvec`` and ``band_matvec_t`` against their plain
    versions at the contraction's fine [8, 160, 256, 768] and coarse
    [8, 40, 256, 768] band shapes, timed with CUDA events beside their
@@ -27,7 +28,19 @@ Phases, each printing lines with the elapsed seconds:
    both backends, ``mri_slices``, ``sparse_cast_with_intersections`` and
    ``raycast_to_pcd``, counters set to 0 just before;
 8. kernel: ``mt_raycast`` against its plain version at the cast_scene and
-   sun shapes on that mesh, timed beside its operation bound.
+   sun shapes on that mesh, timed beside its operation bound;
+9. band-claim path: ``build_trees`` on the main path's plot with
+   ``PYQSM_CLAIM=band`` and with the default (push), in turns, twice each
+   (the second runs' seconds reported); the band claim must run, equal the
+   push claim bit for bit (labels, order, cycles) and launch
+   ``band_matvec_bf16`` once a cycle; then ``process_plot`` under
+   ``PYQSM_CLAIM=band`` with the counters set to 0 just before — its trees
+   and point counts must equal phase 5's;
+10. kernel: ``band_matvec_bf16`` against its plain version at the claim's
+   own shape ([1, rows/256, 256, 768], C = the run's cluster cap) and at
+   C = 128 — 0/1 inputs exactly, random bf16 inputs within
+   768·2⁻²⁴·Σ|W||x| — timed beside its byte bound and one ``torch.bmm`` of
+   the bf16 windows.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -51,6 +64,7 @@ T0 = time.perf_counter()
 # FMA rate outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_TC_FLOP_S = 989e12  # dense bf16 tensor-core rate
 N_TREES = 8  # the bench's plot layout
 MT_OPS_PER_PAIR = 46  # float32 ops per ray-triangle pair in csrc/mt_raycast.cu
 BUDGET_S = 1000  # wall-clock limit of the whole script, build included
@@ -243,6 +257,123 @@ def check_mt_raycast(mt, origins, dirs, mesh, label: str) -> dict:
                 hit_rays=int(fin.sum()), grays_s=r / (ms * 1e-3) / 1e9)
 
 
+def check_band_bf16(bm, nb: int, c: int, seed: int) -> dict:
+    """bf16 kernel vs plain version at [1, nb, 256, 768] x [1, nb·256, c]:
+    a 0/1 adjacency (~16 of 768 window columns a row, as the claim's) with
+    a one-hot frontier must match exactly; random bf16 inputs within
+    768·2⁻²⁴·Σ|W||x| per output. Then timings of the kernel, the plain
+    version and one ``torch.bmm`` of the bf16 windows, on the 0/1 inputs."""
+    import torch
+
+    bs = bm.BAND_BLOCK
+    n = nb * bs
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w01 = (torch.rand(1, nb, bs, 3 * bs, generator=g, device="cuda") < 16 / 768).to(torch.bfloat16)
+    lab = torch.randint(0, c, (n,), generator=g, device="cuda")
+    live = torch.rand(n, generator=g, device="cuda") < 0.5
+    x01 = ((lab[:, None] == torch.arange(c, device="cuda")[None, :]) & live[:, None]).to(
+        torch.bfloat16)[None].contiguous()
+    y01 = bm.band_matvec_bf16_cuda(w01, x01)
+    exact = torch.equal(y01, bm.band_matvec_plain(w01, x01))
+    wr = torch.randn(1, nb, bs, 3 * bs, generator=g, device="cuda").to(torch.bfloat16)
+    xr = torch.randn(1, n, c, generator=g, device="cuda").to(torch.bfloat16)
+    yr = bm.band_matvec_bf16_cuda(wr, xr)
+    err = (yr - bm.band_matvec_plain(wr, xr)).abs()
+    lim = 768 * 2.0 ** -24 * bm.band_matvec_plain(wr.abs(), xr.abs())
+    torch.cuda.synchronize()
+    within = bool((err <= lim).all())
+    max_abs = float(err.max())
+    del wr, xr, yr, err, lim
+    w2 = w01.reshape(nb, bs, 3 * bs)
+    xw = bm._windows(x01, nb).reshape(nb, 3 * bs, c)
+    ms = time_ms(lambda: bm.band_matvec_bf16_cuda(w01, x01))
+    plain_ms = time_ms(lambda: bm.band_matvec_plain(w01, x01), iters=5, warmup=1)
+    bmm_ms = time_ms(lambda: torch.bmm(w2, xw))
+    nbytes = n * (3 * bs * 2 + c * 2 + c * 4)  # W, x read once; y written once
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2 * n * 3 * bs * c / BF16_TC_FLOP_S * 1e3
+    return dict(shape=[1, nb, bs, 3 * bs], c=c, exact01=exact, within=within,
+                max_abs_err=max_abs, ok=exact and within and bool(torch.isfinite(y01).all()),
+                max_count=float(y01.max()), ms=ms, plain_ms=plain_ms, bmm_ms=bmm_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", gbytes=nbytes / 1e9)
+
+
+def band_claim_path(ti, bm, process_plot, Config, pts, mask, iso_cfg, main_trees, plot_kw) -> dict:
+    """Phase 9: ``build_trees`` with the band claim and with the default
+    push claim, in turns, twice each; then one ``process_plot`` under the
+    band claim. Restores ``PYQSM_CLAIM`` afterwards."""
+    import torch
+
+    saved = os.environ.get("PYQSM_CLAIM")
+    out = {}
+    try:
+        for rnd in (1, 2):
+            for mode in ("band", "push"):
+                if mode == "band":
+                    os.environ["PYQSM_CLAIM"] = "band"
+                else:
+                    os.environ.pop("PYQSM_CLAIM", None)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                bm.LAUNCHES_BF16 = 0
+                t = time.perf_counter()
+                res = ti.build_trees(pts, mask, iso_cfg, device="cuda")
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t
+                out[(mode, rnd)] = dict(res=res, s=sec, launches=bm.LAUNCHES_BF16,
+                                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                log("band_claim", f"build_trees run {rnd} claim {res.claim} (asked "
+                    f"{'band' if mode == 'band' else 'the default'}): "
+                    f"{sec:.4f}s, cycles {res.cycles_run}, band_matvec_bf16 launches "
+                    f"{bm.LAUNCHES_BF16}, max_memory_allocated "
+                    f"{out[(mode, rnd)]['peak_gib']:.3f} GiB")
+        band, push = out[("band", 2)], out[("push", 2)]
+        rb, rp = band["res"], push["res"]
+        if any(out[("band", r)]["res"].claim != "band" for r in (1, 2)):
+            fail("PYQSM_CLAIM=band did not run the band claim")
+        if rp.claim == "band":
+            fail("the default claim ran the band claim")
+        same = (torch.equal(rb.labels, rp.labels) and torch.equal(rb.order, rp.order)
+                and rb.cycles_run == rp.cycles_run)
+        out["band_info"] = dict(ti.LAST_BAND)
+        log("band_claim", f"band {out['band_info']}; band == push bit for bit: {same}; second "
+            f"runs band {band['s']:.4f}s / push {push['s']:.4f}s")
+        if not same:
+            fail("band claim labels/order/cycles differ from the push claim's")
+        if any(out[("band", r)]["launches"] != out[("band", r)]["res"].cycles_run for r in (1, 2)):
+            fail("band_matvec_bf16 launches differ from the band claim's cycles")
+
+        os.environ["PYQSM_CLAIM"] = "band"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bm.LAUNCHES = bm.LAUNCHES_T = bm.LAUNCHES_BF16 = 0
+        t = time.perf_counter()
+        res = process_plot(pts, mask, Config(), iso_cfg, device="cuda", **plot_kw)
+        torch.cuda.synchronize()
+        out["plot_s"] = time.perf_counter() - t
+        out["launches"] = bm.LAUNCHES_BF16
+        trees = [(tr.tree_id, tr.n_points) for tr in res.trees]
+        log("band_claim", f"process_plot under the band claim: claim {res.growth.claim}, cycles "
+            f"{res.growth.cycles_run}, trees {trees}, stages {res.timings}, total "
+            f"{out['plot_s']:.2f}s; band_matvec_bf16 launches {out['launches']}, band_matvec "
+            f"{bm.LAUNCHES}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if res.growth.claim != "band" or out["launches"] != res.growth.cycles_run:
+            fail("process_plot under PYQSM_CLAIM=band did not run the band claim once a cycle")
+        if trees != main_trees:
+            fail("process_plot under the band claim found other trees than the main path")
+        if not all(bool(torch.isfinite(tr.cylinders.radius).all()) and int(tr.cylinders.count())
+                   for tr in res.trees):
+            fail("process_plot under the band claim: a tree without finite cylinders")
+    finally:
+        if saved is None:
+            os.environ.pop("PYQSM_CLAIM", None)
+        else:
+            os.environ["PYQSM_CLAIM"] = saved
+    return out
+
+
 def raycast_path(tr, tmr, rg, vm, mt, pts, cfg, seed: int) -> dict:
     """The ray-casting path on the main path's canopy; mt_raycast's counter
     is set to 0 just before the casts and read just after."""
@@ -362,6 +493,7 @@ def main() -> None:
     sys.path.insert(0, here)
     try:
         from pyqsm_tpu_torch.config import Config, IsolationConfig, RaycastConfig
+        from pyqsm_tpu_torch.models import isolation as ti
         from pyqsm_tpu_torch.models import raycast as tmr
         from pyqsm_tpu_torch.models.plot_pipeline import process_plot
         from pyqsm_tpu_torch.ops import band_matvec as bm
@@ -386,7 +518,8 @@ def main() -> None:
 
     # 2. kernel builds from the checkout's sources, one nvcc each, in parallel
     t_build = time.perf_counter()
-    libs = {"band_matvec": bm.LIB, "band_matvec_t": bm.LIB_T, "mt_raycast": mt.LIB}
+    libs = {"band_matvec": bm.LIB, "band_matvec_t": bm.LIB_T, "mt_raycast": mt.LIB,
+            "band_matvec_bf16": bm.LIB_BF16}
     paths = cuda_build.build_all(libs.values())
     for lib in libs.values():
         lib.load()
@@ -441,10 +574,10 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log("main", f"process_plot on {pts.shape[0]} points, {N_TREES} trees")
-    bm.LAUNCHES = bm.LAUNCHES_T = mt.LAUNCHES = 0
+    bm.LAUNCHES = bm.LAUNCHES_T = bm.LAUNCHES_BF16 = mt.LAUNCHES = 0
     t_main = time.perf_counter()
-    res = process_plot(pts, mask, Config(), iso_cfg, skeleton_voxel=0.03,
-                       max_skeleton_points=40_000, min_tree_points=2000,
+    plot_kw = dict(skeleton_voxel=0.03, max_skeleton_points=40_000, min_tree_points=2000)
+    res = process_plot(pts, mask, Config(), iso_cfg, **plot_kw,
                        progress=lambda stage, s: log("main", f"stage {stage} {s:.3f}s"),
                        device="cuda")
     torch.cuda.synchronize()
@@ -456,7 +589,8 @@ def main() -> None:
     log("main", f"trees found {len(res.trees)} (ids {[t.tree_id for t in res.trees]}, points "
         f"{[t.n_points for t in res.trees]}), cylinders {n_cyl} total {sum(n_cyl)}; "
         f"growth cycles {res.growth.cycles_run} claim {res.growth.claim}; stages {res.timings}; "
-        f"total {main_s:.2f}s; band_matvec launches {launches}; max_memory_allocated "
+        f"total {main_s:.2f}s; band_matvec launches {launches} (band_matvec_bf16 "
+        f"{bm.LAUNCHES_BF16}); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if len(res.trees) != N_TREES:
         fail(f"found {len(res.trees)} trees, the plot holds {N_TREES}")
@@ -502,6 +636,25 @@ def main() -> None:
         if not c["ok"]:
             fail(f"mt_raycast {label}: kernel disagrees with its plain version")
 
+    # 9. the band-claim path on the main path's plot
+    main_trees = [(t.tree_id, t.n_points) for t in res.trees]
+    claim = band_claim_path(ti, bm, process_plot, Config, pts, mask, iso_cfg, main_trees, plot_kw)
+    band = claim["band_info"]
+
+    # 10. band_matvec_bf16 vs plain at the claim's shape and at C = 128
+    nb_claim = band["rows"] // bm.BAND_BLOCK
+    bf = {}
+    for label, c in (("claim", band["cluster_cap"]), ("c128", 128)):
+        r = check_band_bf16(bm, nb_claim, c, args.seed)
+        bf[label] = r
+        log("kernel", f"band_matvec_bf16 {label} {r['shape']} C={c}: 0/1 inputs equal "
+            f"{r['exact01']} (max count {r['max_count']:g}), random bf16 within "
+            f"768·2⁻²⁴·Σ|W||x| {r['within']} (max_abs_err {r['max_abs_err']:.3e}); kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['gbytes']:.3f} GB), plain {r['plain_ms']:.4f} ms, torch.bmm {r['bmm_ms']:.4f} ms")
+        if not r["ok"]:
+            fail(f"band_matvec_bf16 {label}: kernel disagrees with its plain version")
+
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]
         return dict(
@@ -527,6 +680,17 @@ def main() -> None:
              library_ms=None, check="pass", shape=[cs["rays"], cs["triangles"]],
              sun={k: sn[k] for k in ("rays", "triangles", "ms", "plain_ms", "bound_ms",
                                      "max_abs_err")}),
+        dict(name="band_matvec_bf16", route="cuda", source="pyqsm_tpu_torch/csrc/band_matvec_bf16.cu",
+             replaces="pyqsm_tpu/ops/pallas_kernels.py:183", launches=claim["launches"],
+             max_abs_err=max(bf["claim"]["max_abs_err"], bf["c128"]["max_abs_err"]),
+             ms=bf["claim"]["ms"], plain_ms=bf["claim"]["plain_ms"],
+             bound_ms=bf["claim"]["bound_ms"], bound_by=bf["claim"]["bound_by"],
+             library_ms=bf["claim"]["bmm_ms"], check="pass", shape=bf["claim"]["shape"],
+             c=bf["claim"]["c"], band_bytes=band["band_bytes"],
+             isolation_s={"band": claim[("band", 2)]["s"],
+                          claim[("push", 2)]["res"].claim: claim[("push", 2)]["s"]},
+             c128={k: bf["c128"][k] for k in ("ms", "plain_ms", "bmm_ms", "bound_ms", "bound_by",
+                                              "max_abs_err")}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

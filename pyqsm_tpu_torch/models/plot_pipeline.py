@@ -1,5 +1,6 @@
 """Whole-plot pipeline: isolate → per-tree skeleton QSM (counterpart of
-``pyqsm_tpu/models/plot_pipeline.py``, ``with_metrics=False``, no mesh).
+``pyqsm_tpu/models/plot_pipeline.py``; canopy metrics and ``mesh=`` are not
+ported yet).
 
 The plot stays on the device; every kept tree is gathered into one
 ``[T, cap]`` buffer, its resolution rung found by a batched binary search
@@ -30,6 +31,7 @@ class TreeResult(NamedTuple):
     tree_id: int
     n_points: int
     cylinders: Cylinders
+    metrics: dict | None = None  # canopy metrics (``with_metrics``, not ported yet)
 
 
 class PlotResult(NamedTuple):
@@ -45,13 +47,23 @@ def _sync(dev: torch.device) -> None:
 
 def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConfig | None = None,
                  skeleton_voxel: float = 0.05, max_skeleton_points: int = 50_000,
-                 min_tree_points: int = 500, progress=None,
+                 min_tree_points: int = 500, with_metrics: bool = False,
+                 max_trees: int | None = None, progress=None,
                  device: str | torch.device = DEFAULT_DEVICE) -> PlotResult:
     """Isolate every tree and fit a skeleton QSM per tree, on ``device``
     (``cuda`` unless the caller asks for the CPU).
 
+    ``max_trees``: keep at most this many trees, the largest first (before
+    the ``min_tree_points`` cut, as in the JAX package).
+    ``with_metrics``: canopy metrics per tree — not ported yet, so True
+    raises ``NotImplementedError`` rather than return trees without them.
     ``progress``: optional ``callable(stage, stage_s)`` fired after each
-    stage (isolation, ladder, contraction, topology)."""
+    stage (isolation, ladder, contraction, topology); an exception it
+    raises is swallowed — an observer must not end the run."""
+    if with_metrics:
+        raise NotImplementedError(
+            "process_plot(with_metrics=True): canopy metrics are not ported yet "
+            "(ROADMAP.md §1, the canopy-metrics item)")
     dev = resolve_device(device)
     points = as_tensor(points, dev, torch.float32)
     mask = as_tensor(mask, dev, torch.bool)
@@ -62,7 +74,10 @@ def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConf
         _sync(dev)
         timings[f"{stage}_s"] = round(time.perf_counter() - t0, 3)
         if progress is not None:
-            progress(stage, timings[f"{stage}_s"])
+            try:
+                progress(stage, timings[f"{stage}_s"])
+            except Exception:  # noqa: BLE001 — the observer must not kill the run
+                pass
         return time.perf_counter()
 
     t0 = time.perf_counter()
@@ -78,6 +93,8 @@ def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConf
         counts = seg_counts[:n_uniq].cpu().numpy()
     order = np.argsort(-counts)  # same numpy call as the JAX package
     uniq, counts = uniq[order], counts[order]
+    if max_trees is not None:
+        uniq, counts = uniq[:max_trees], counts[:max_trees]
     kept_ids = [int(t) for t, c in zip(uniq, counts) if c >= min_tree_points]
     kept_counts = [int(c) for c in counts if c >= min_tree_points]
     if not kept_ids:

@@ -30,8 +30,6 @@ from pyqsm_tpu_torch.state import Cylinders, Topology
 # A tree whose mass ratio improves by less than this fraction in one
 # iteration has reached its contraction fixed point (stall detector).
 _STALL_FRAC = 0.05
-_CG_ITERS = 80  # PCG budget per contraction step (3x on the first solve)
-_COARSE_STRIDE = 4  # two-level path: the coarse pass takes every 4th row
 
 
 class SkeletonResult(NamedTuple):
@@ -191,29 +189,44 @@ def _outer_loop(pts, masks, L, wl, wh, shift, first, ratio, it, m0_mean, m0, cen
 
 
 def extract_skeleton_batch(points, masks, cfg: SkeletonizeConfig | None = None,
-                           two_level: bool = True, _morton: bool = True,
+                           cg_iters: int = 80, two_level: bool = True, coarse_stride: int = 4,
+                           _morton: bool = True, cg_iters_first: int | None = None,
+                           cg_iters_polish: int | None = None,
                            device: str | torch.device = DEFAULT_DEVICE) -> SkeletonResult:
     """Contract a batch of trees [T, P, 3] (masks [T, P]) onto their
     skeletons. Rows are Morton-ordered internally (the banded Laplacian
     needs the locality) and returned in the caller's order. Buffers of
-    ≥ 16 384 rows take the two-level (coarse → fine) path; ``two_level``
-    and ``_morton`` are off for the coarse pass's own call."""
+    ≥ 8192·``coarse_stride``/2 rows take the two-level (coarse → fine)
+    path; ``two_level`` and ``_morton`` are off for the coarse pass's own
+    call.
+
+    PCG budgets, as in the JAX package: ``cg_iters`` per solve, the first
+    solve ``cg_iters_first`` (default 3·``cg_iters``; on the two-level path
+    the coarse pass's first solve), and on the two-level path every
+    full-resolution solve ``cg_iters_polish`` (default
+    max(``cg_iters``//2, 20))."""
     dev = resolve_device(device)
     points = as_tensor(points, dev, torch.float32)
     masks = as_tensor(masks, dev, torch.bool)
     cfg = cfg or SkeletonizeConfig()
+    budgets = dict(cg_iters=cg_iters, coarse_stride=coarse_stride,
+                   cg_iters_first=cg_iters_first, cg_iters_polish=cg_iters_polish)
     if _morton:
         perm = _morton_perm_batch(points, masks)
         res = extract_skeleton_batch(_take(points, perm), _take(masks, perm), cfg,
-                                     two_level=two_level, _morton=False, device=dev)
+                                     two_level=two_level, _morton=False, device=dev, **budgets)
         return _unpermute(res, perm)
     termination = cfg.termination_ratio
     contraction = cfg.init_contraction
     if cfg.step_wise_contraction_amplification == "auto":
         n_max = int(masks.sum(dim=1).max())
         termination, contraction = set_amplification(n_max, termination)
-    if two_level and points.shape[1] >= 8192 * _COARSE_STRIDE // 2:
-        return _extract_skeleton_two_level(points, masks, cfg, termination, contraction)
+    if two_level and points.shape[1] >= 8192 * coarse_stride // 2:
+        return _extract_skeleton_two_level(points, masks, cfg, termination, contraction,
+                                           cg_iters, coarse_stride, cg_iters_first,
+                                           cg_iters_polish)
+    if cg_iters_first is None:
+        cg_iters_first = 3 * cg_iters
     banded = points.shape[1] % 256 == 0
     center, axes, half, L, m0, m0_mean, wl, wh = _contract_init_batch(
         points, masks, cfg.n_neighbors, cfg.moll, contraction, cfg.init_attraction,
@@ -224,7 +237,7 @@ def extract_skeleton_batch(points, masks, cfg: SkeletonizeConfig | None = None,
     zero = torch.zeros_like(points)
     return _outer_loop(points, masks, L, wl, wh, zero, zero, ratio, it, m0_mean, m0,
                        center, axes, half, cfg, contraction, termination, banded,
-                       3 * _CG_ITERS, _CG_ITERS)
+                       cg_iters_first, cg_iters)
 
 
 def _coarse_transfer(fine_p, fine_m, coarse_p, coarse_m, coarse_shift):
@@ -234,20 +247,23 @@ def _coarse_transfer(fine_p, fine_m, coarse_p, coarse_m, coarse_shift):
     return torch.where(fine_m[..., None], fine_p - disp, fine_p)
 
 
-def _extract_skeleton_two_level(points, masks, cfg, termination, contraction):
+def _extract_skeleton_two_level(points, masks, cfg, termination, contraction, cg_iters,
+                                stride, cg_iters_first, cg_iters_polish):
     """Coarse → fine contraction: the bulk of the motion on a 1/stride
     subsample, then the full cloud starts from the transferred coarse
-    displacement and is polished with half the CG budget; ``first_shift``
-    is exact (one full-res iteration from the original positions)."""
-    stride = _COARSE_STRIDE
-    cg_iters_polish = max(_CG_ITERS // 2, 20)
+    displacement and is polished with ``cg_iters_polish`` (default half
+    the CG budget); ``first_shift`` is exact (one full-res iteration from
+    the original positions)."""
+    if cg_iters_polish is None:
+        cg_iters_polish = max(cg_iters // 2, 20)
     cfg_fixed = dataclasses.replace(cfg, termination_ratio=termination,
                                     init_contraction=contraction,
                                     step_wise_contraction_amplification="fixed")
     banded = points.shape[1] % 256 == 0
     coarse = extract_skeleton_batch(
         points[:, ::stride].contiguous(), masks[:, ::stride].contiguous(), cfg_fixed,
-        two_level=False, _morton=False, device=points.device)
+        cg_iters=cg_iters, two_level=False, _morton=False, cg_iters_first=cg_iters_first,
+        device=points.device)
     center, axes, half, L0, m0, m0_mean, wl0, wh0 = _contract_init_batch(
         points, masks, cfg.n_neighbors, cfg.moll, contraction, cfg.init_attraction,
         banded=banded)
@@ -296,15 +312,20 @@ def _norm3(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((x * x).sum(dim=-1))
 
 
-def extract_topology(contracted, mask, total_shift, graph_k_n: int = 15) -> TopologyResult:
+def extract_topology(contracted, mask, total_shift, graph_k_n: int = 15,
+                     fps_fraction: float = 0.1, min_fps: int = 15,
+                     dedupe_voxel: float = 0.02) -> TopologyResult:
     """FPS → kNN graph → Borůvka MST → degree-2 contraction for one tree.
-    FPS picks 10 % (at least 15) of the contracted points after deduping
-    them at a 0.02 voxel; the pick count is padded to a power of two."""
+    FPS picks ``fps_fraction`` (at least ``min_fps``) of the contracted
+    points, after deduping them at ``dedupe_voxel`` (0 or None: no dedupe);
+    the pick count is padded to a power of two."""
     mask = mask & (_norm3(contracted) > 0.01)  # near-origin artifacts
-    _, rep_mask, _ = voxel_downsample(contracted, 0.02, mask)
-    sample_mask = mask & rep_mask
+    sample_mask = mask
+    if dedupe_voxel and dedupe_voxel > 0:
+        _, rep_mask, _ = voxel_downsample(contracted, dedupe_voxel, mask)
+        sample_mask = mask & rep_mask
     n_live = int(sample_mask.sum())
-    s_real = min(max(int(n_live * 0.1), 15), max(n_live, 1))
+    s_real = min(max(int(n_live * fps_fraction), min_fps), max(n_live, 1))
     s = 16
     while s < s_real:
         s *= 2

@@ -2,7 +2,11 @@
 their plain PyTorch versions and their launch counters.
 
 - ``band_apply`` (y = W x) replaces ``pyqsm_tpu/ops/pallas_kernels.py:183``
-  ``band_matvec_pallas``; kernel ``csrc/band_matvec.cu``.
+  ``band_matvec_pallas`` in its two unsharded forms: float32 weights with
+  C = 3 (the contraction's Laplacian; kernel ``csrc/band_matvec.cu``) and
+  bf16 weights with C = cluster_cap in {16, 32, 64, 128} (the banded
+  region-grow claim; kernel ``csrc/band_matvec_bf16.cu``). Both return
+  float32.
 - ``band_apply_t`` (y = Wᵀ x from the forward tiles) replaces
   ``pallas_kernels.py:227`` ``band_matvec_t_pallas``; kernel
   ``csrc/band_matvec_t.cu``.
@@ -24,9 +28,15 @@ BAND_BLOCK = 256  # rows per band block; window = 3 blocks
 # path ran through the kernel.
 LAUNCHES = 0  # band_matvec
 LAUNCHES_T = 0  # band_matvec_t
+LAUNCHES_BF16 = 0  # band_matvec_bf16
 
 LIB = CudaLib("band_matvec.cu", {"band_matvec_f32_c3": ([P, P, P, I, I, P], I)})
 LIB_T = CudaLib("band_matvec_t.cu", {"band_matvec_t_f32_c3": ([P, P, P, I, I, P], I)})
+LIB_BF16 = CudaLib("band_matvec_bf16.cu", {"band_matvec_bf16": ([P, P, P, I, I, I, P], I)})
+
+# x widths the bf16 kernel takes: the powers of two that ``build_trees``'
+# cluster cap can take, up to the claim dispatch's cap of 128
+BF16_WIDTHS = (16, 32, 64, 128)
 
 
 def _windows(x: torch.Tensor, nb: int) -> torch.Tensor:
@@ -42,25 +52,33 @@ def _windows(x: torch.Tensor, nb: int) -> torch.Tensor:
 
 def band_matvec_plain(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Plain version: y[t, i] = Σ_j W_ij x_j as the window einsum of the
-    JAX package's ``_band_apply`` (``sparse.py:227-239``), in float32."""
+    JAX package's ``_band_apply`` (``sparse.py:227-239``). W and x are
+    upcast to float32 first — the einsum's ``preferred_element_type=
+    float32`` — so bf16 0/1 inputs give exact integer counts."""
     t, nb, bs, _ = b_w.shape
-    y = torch.einsum("tbrc,tbcd->tbrd", b_w, _windows(x, nb).to(b_w.dtype))
-    return y.reshape(t, nb * bs, x.shape[-1]).to(torch.float32)
+    y = torch.einsum("tbrc,tbcd->tbrd", b_w.float(), _windows(x.float(), nb))
+    return y.reshape(t, nb * bs, x.shape[-1])
 
 
-def _check_band(b_w: torch.Tensor, x: torch.Tensor, what: str) -> tuple[int, int]:
-    """Validate kernel inputs; returns (trees, nb). Raises on anything the
-    kernels do not take."""
+def _check_band(b_w: torch.Tensor, x: torch.Tensor, what: str,
+                bf16: bool = False) -> tuple[int, int]:
+    """Validate kernel inputs; returns (trees, nb). The kernels take exactly
+    two forms — float32 W and x with C = 3 (``bf16=False``), bf16 W and x
+    with C in ``BF16_WIDTHS`` (``bf16=True``) — and raise on anything else."""
     if b_w.dim() != 4 or b_w.shape[2:] != (BAND_BLOCK, 3 * BAND_BLOCK):
         raise ValueError(f"b_w must be [T, nb, {BAND_BLOCK}, {3 * BAND_BLOCK}], got {tuple(b_w.shape)}")
     t, nb = b_w.shape[:2]
-    if x.shape != (t, nb * BAND_BLOCK, 3):
-        raise ValueError(f"x must be [{t}, {nb * BAND_BLOCK}, 3], got {tuple(x.shape)}")
-    if b_w.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError(f"{what} kernel takes float32 weights and x (bf16 is not ported)")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if b_w.dtype != dtype or x.dtype != dtype:
+        raise TypeError(f"{what} kernel takes {dtype} weights and x, got {b_w.dtype} and {x.dtype}")
+    widths = BF16_WIDTHS if bf16 else (3,)
+    if x.dim() != 3 or x.shape[:2] != (t, nb * BAND_BLOCK) or x.shape[2] not in widths:
+        raise ValueError(f"x must be [{t}, {nb * BAND_BLOCK}, C] with C in {widths}, "
+                         f"got {tuple(x.shape)}")
     if not (b_w.is_cuda and x.is_cuda and b_w.device == x.device):
         raise ValueError(f"{what} kernel needs b_w and x on one CUDA device")
-    if not (b_w.is_contiguous() and x.is_contiguous()) or b_w.data_ptr() % 16:
+    if not (b_w.is_contiguous() and x.is_contiguous()) or b_w.data_ptr() % 16 or \
+            x.data_ptr() % 16:
         raise ValueError(f"{what} kernel needs contiguous, 16-byte aligned inputs")
     return t, nb
 
@@ -84,6 +102,22 @@ def band_matvec_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def band_matvec_bf16_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 tensor-core kernel: b_w [T, nb, 256, 768] bf16, x
+    [T, nb·256, C] bf16 with C in {16, 32, 64, 128}, both contiguous on one
+    CUDA device; returns float32 [T, nb·256, C]. Raises on anything else."""
+    global LAUNCHES_BF16
+    t, nb = _check_band(b_w, x, "band_matvec_bf16", bf16=True)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = LIB_BF16.load().band_matvec_bf16(b_w.data_ptr(), x.data_ptr(), y.data_ptr(), t, nb,
+                                              x.shape[2], stream)
+    LIB_BF16.check(rc, "band_matvec_bf16")
+    LAUNCHES_BF16 += 1
+    return y
+
+
 def band_matvec_t_plain(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Plain version of the transpose: y[t, j] = Σ_i W_ij x_i read from the
     forward tiles, as the JAX package's ``_band_apply_t`` einsum
@@ -92,12 +126,12 @@ def band_matvec_t_plain(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     block."""
     t, nb, bs, _ = b_w.shape
     c = x.shape[-1]
-    xb = x.reshape(t, nb, bs, c).to(b_w.dtype)
-    contrib = torch.einsum("tbrc,tbrd->tbcd", b_w, xb)  # [T, nb, 3·BS, C]
+    xb = x.reshape(t, nb, bs, c).float()
+    contrib = torch.einsum("tbrc,tbrd->tbcd", b_w.float(), xb)  # [T, nb, 3·BS, C]
     t0, t1, t2 = contrib.split(bs, dim=2)
     zero = torch.zeros_like(t1[:, :1])
     acc = t1 + torch.cat([t0[:, 1:], zero], dim=1) + torch.cat([zero, t2[:, :-1]], dim=1)
-    return acc.reshape(t, nb * bs, c).to(torch.float32)
+    return acc.reshape(t, nb * bs, c)
 
 
 def band_matvec_t_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -110,9 +144,13 @@ def band_matvec_t_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def band_apply(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Σ_j W_ij x_j for block-banded W: the kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    """Σ_j W_ij x_j for block-banded W, in float32: for a CUDA tensor the
+    kernel of W's dtype (bf16 → ``band_matvec_bf16``, else
+    ``band_matvec``, which raises on anything but float32), for a CPU
+    tensor the plain version."""
     if x.is_cuda:
+        if b_w.dtype == torch.bfloat16:
+            return band_matvec_bf16_cuda(b_w, x.contiguous())
         return band_matvec_cuda(b_w, x.contiguous())
     if x.device.type == "cpu":
         return band_matvec_plain(b_w, x)

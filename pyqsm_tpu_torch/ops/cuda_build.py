@@ -4,8 +4,10 @@ Each kernel source under ``csrc/`` has a plain C interface. It is compiled
 with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` beside this
 package (git-ignored, cached by source and flags) and loaded with
 ``ctypes`` — seconds per source, where a source that includes PyTorch's
-headers takes minutes. ``build_all`` starts one ``nvcc`` per source at
-once, so a cold start costs the slowest build, not their sum.
+headers takes minutes. Every ``CudaLib`` registers itself in ``REGISTRY``;
+the first ``load`` of any of them builds every registered source that is
+not built yet, one ``nvcc`` each, all started at once (``build_all``), so
+a cold start costs the slowest build, not their sum.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+REGISTRY: list["CudaLib"] = []  # every kernel library the port declares
 
 
 def _nvcc() -> str:
@@ -46,6 +50,7 @@ class CudaLib:
         self.flags = NVCC_FLAGS + list(extra_flags)
         self.log = ""  # nvcc/ptxas output of the build this process made
         self._lib = None
+        REGISTRY.append(self)
 
     def target(self) -> Path:
         tag = hashlib.sha256(self.source.read_bytes() + " ".join(self.flags).encode())
@@ -84,6 +89,8 @@ class CudaLib:
 
     def load(self):
         if self._lib is None:
+            if not self.target().exists():
+                build_all()  # this source together with every other unbuilt one
             lib = ctypes.CDLL(str(self.build()))
             for name, (argtypes, restype) in self.functions.items():
                 fn = getattr(lib, name)
@@ -102,9 +109,11 @@ class CudaLib:
             raise RuntimeError(f"{what} launch failed: {msg}")
 
 
-def build_all(libs) -> list[Path]:
-    """Build every library at once (one nvcc process each) and return the
-    paths; raises on the first failed build after all have ended."""
+def build_all(libs=None) -> list[Path]:
+    """Build every library (default: ``REGISTRY``) at once, one nvcc process
+    each, and return the paths; raises on the first failed build after all
+    have ended."""
+    libs = REGISTRY if libs is None else list(libs)
     started = [lib._start() for lib in libs]
     errors, paths = [], []
     for lib, s in zip(libs, started):

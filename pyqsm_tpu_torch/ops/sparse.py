@@ -120,15 +120,25 @@ def band_transpose(b_w: torch.Tensor) -> torch.Tensor:
     return torch.cat([t0, s1, t2], dim=3).contiguous()
 
 
-def _spill_apply(s_i, s_j, s_w, x, n, transpose=False):
-    """Exact spill list applied to x [T, N, C] (segment sum by index_add_)."""
+def _spill_apply(s_i, s_j, s_w, x, n, transpose=False, sorted_dst=False):
+    """Exact spill list applied to x [T, N, C] (segment sum by index_add_).
+
+    ``sorted_dst`` is the JAX signature's promise that the destinations
+    ascend (there a lowering hint for a segmented sum); ``index_add_``
+    needs no such promise, so the result is the same either way. bf16
+    weights and x (the banded claim's 0/1 spill and one-hot frontier) are
+    accumulated in float32, where the JAX package sums in bf16: every term
+    is 0 or 1, so the float32 sums are exact integer counts, and a bf16 sum
+    of nonnegative terms is positive exactly when they are — the claim,
+    which reads only ``> 0``, is unchanged."""
     t, _, c = x.shape
     src = (s_i if transpose else s_j).long()
     dst = (s_j if transpose else s_i).long()
     xs = torch.gather(x, 1, torch.clamp(src, 0, n - 1)[..., None].expand(-1, -1, c))
-    contrib = s_w[..., None] * xs
+    acc = torch.promote_types(x.dtype, torch.float32)
+    contrib = s_w.to(acc)[..., None] * xs.to(acc)
     off = torch.arange(t, device=x.device)[:, None] * (n + 1)
-    out = torch.zeros(t * (n + 1), c, dtype=x.dtype, device=x.device)
+    out = torch.zeros(t * (n + 1), c, dtype=acc, device=x.device)
     out.index_add_(0, (torch.clamp(dst, max=n) + off).reshape(-1), contrib.reshape(-1, c))
     return out.reshape(t, n + 1, c)[:, :n]
 

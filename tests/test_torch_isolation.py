@@ -1,6 +1,7 @@
 """Tree isolation of the PyTorch port against the JAX package on the CPU
 (the cases of tests/test_isolation.py): seeds, region growing with the
-gather and the push claims, and build_trees — labels BIT-EQUAL."""
+gather, push and band claims, and build_trees with its keywords — labels
+BIT-EQUAL. The band claim's own cases are in test_torch_band_claim.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -97,9 +98,9 @@ def _blob_graph(rng, n=32768):
     return np.array(idx), seeds
 
 
-@pytest.mark.parametrize("mode", ["gather", "push"])
+@pytest.mark.parametrize("mode", ["gather", "push", "band"])
 def test_region_grow_claims_match_jax_gather(rng, monkeypatch, mode):
-    """Both claims of the port are bit-identical to the JAX package's gather
+    """Every claim of the port is bit-identical to the JAX package's gather
     kernel on a contested multi-blob graph; the named claim really ran."""
     monkeypatch.setenv("PYQSM_CLAIM", mode)
     idx, seeds = _blob_graph(rng)
@@ -176,3 +177,116 @@ def test_build_trees_equal(rng, monkeypatch, mode):
     t0, t1 = lab[:4000], lab[6000:10000]
     assert (t0 >= 0).sum() > 3000 and (t1 >= 0).sum() > 3000
     assert t0[t0 >= 0][0] != t1[t1 >= 0][0]
+
+
+@pytest.mark.parametrize("mode", ["gather", "push", "band"])
+def test_region_grow_active0_matches_jax(rng, monkeypatch, mode):
+    """Activity carried in (``active0``: clusters 1 and 4 already retired)
+    holds on every claim as in the JAX package's gather claim."""
+    monkeypatch.setenv("PYQSM_CLAIM", mode)
+    idx, seeds = _blob_graph(rng)
+    n = idx.shape[0]
+    active0 = np.ones(16, bool)
+    active0[[1, 4]] = False
+    kw = dict(max_cycles=60, min_frontier=2, cluster_cap=16)
+    ref = ji._region_grow_gather(jnp.asarray(idx), jnp.asarray(seeds), jnp.ones(n, bool),
+                                 active0=jnp.asarray(active0), **kw)
+    res = ti.region_grow(torch.as_tensor(idx), torch.as_tensor(seeds),
+                         torch.ones(n, dtype=torch.bool), active0=torch.as_tensor(active0), **kw)
+    assert res.claim == mode
+    _eq(ref.labels, res.labels)
+    _eq(ref.order, res.order)
+    _eq(ref.active, res.active)
+    assert int(ref.cycles_run) == res.cycles_run
+    # retired clusters propose nothing: they keep their seed rows only
+    assert np.isin(res.labels.numpy(), [1, 4]).sum() == np.isin(seeds, [1, 4]).sum() > 0
+
+
+def test_region_grow_scatter_push_matches_jax(rng, monkeypatch):
+    """``scatter_push`` (in-edges propagate too) on a strongly asymmetric
+    graph: it runs on the gather claim even when push is asked for, and
+    equals the JAX package's."""
+    monkeypatch.setenv("PYQSM_CLAIM", "push")
+    n, k = 4096, 3
+    idx = np.minimum(np.arange(n)[:, None] + rng.integers(1, 40, (n, k)), n - 1).astype(np.int32)
+    idx[idx == np.arange(n)[:, None]] = -1  # forward edges only: asymmetric
+    seeds = np.full(n, -1, np.int32)
+    seeds[[100, 2000, 3500]] = [0, 1, 2]
+    kw = dict(max_cycles=100, min_frontier=1, cluster_cap=8)
+    for push in (False, True):
+        ref = ji.region_grow(jnp.asarray(idx), jnp.asarray(seeds), jnp.ones(n, bool),
+                             scatter_push=push, **kw)
+        res = ti.region_grow(torch.as_tensor(idx), torch.as_tensor(seeds),
+                             torch.ones(n, dtype=torch.bool), scatter_push=push, **kw)
+        assert res.claim == ("gather" if push else "push")
+        _eq(ref.labels, res.labels)
+        _eq(ref.order, res.order)
+        assert int(ref.cycles_run) == res.cycles_run
+    # the in-edges reach rows below each seed, which out-edges alone never do
+    assert (res.labels.numpy()[:100] >= 0).any()
+
+
+def test_id_trunk_bases_without_clean_matches_jax(rng):
+    """``clean=False`` skips the slice's outlier clean, as in the JAX
+    package: strays 0.6 m off a trunk's base are outliers to the clean but
+    DBSCAN border points without it."""
+    pts = two_tree_plot(rng)
+    rows = rng.choice(4000, 8, replace=False)
+    pts[rows, 2] = 0.05
+    pts[rows, 0] += 0.6
+    m = np.ones(len(pts), bool)
+    kw = dict(base_min_points=50, low_pctile=5.0)
+    out = {}
+    for clean in (True, False):
+        a = ji.id_trunk_bases(jnp.asarray(pts), jnp.asarray(m), JIso(**kw), clean=clean)
+        b = ti.id_trunk_bases(torch.as_tensor(pts), torch.as_tensor(m), TIso(**kw), clean=clean)
+        for x, y in zip(a, b):
+            _eq(x, y)
+        out[clean] = int((b[0].numpy()[rows] >= 0).sum())
+    assert out[False] > out[True]
+
+
+@pytest.mark.parametrize("kw", [dict(exclude_regions=[[[6.0, -3.0], [10.0, 3.0]]]),
+                                dict(neighbor_cap=8), dict(pre_voxel=0.1)],
+                         ids=["exclude_regions", "neighbor_cap", "pre_voxel"])
+def test_build_trees_keywords_match_jax(rng, kw):
+    """``build_trees``' keywords give the JAX package's labels and orders:
+    an excluded footprint leaves one tree; a smaller radius-graph cap and
+    a finer representative voxel change the growth identically."""
+    pts = two_tree_plot(rng)
+    m = np.ones(len(pts), bool)
+    cfg = dict(base_min_points=50, low_pctile=5.0, max_dist=0.35, cycles=300, min_frontier=2)
+    a = ji.build_trees(jnp.asarray(pts), jnp.asarray(m), JIso(**cfg), **kw)
+    b = ti.build_trees(pts, m, TIso(**cfg), device="cpu", **kw)
+    _eq(a.labels, b.labels)
+    _eq(a.order, b.order)
+    assert int(a.cycles_run) == b.cycles_run
+    lab = b.labels.numpy()
+    assert len(np.unique(lab[lab >= 0])) == (1 if "exclude_regions" in kw else 2)
+
+
+def test_build_trees_observer_matches_jax(rng):
+    """Observed growth runs in chunks with carried activity: the observer
+    fires at the JAX package's cycles with torch tensors, and the labels
+    and orders equal the JAX package's observed and unobserved runs."""
+    pts = two_tree_plot(rng)
+    m = np.ones(len(pts), bool)
+    cfg = dict(base_min_points=50, low_pctile=5.0, max_dist=0.35, cycles=300, min_frontier=2)
+    calls_j, calls_t = [], []
+    a = ji.build_trees(jnp.asarray(pts), jnp.asarray(m), JIso(**cfg),
+                       observer=lambda c, p, lab, o: calls_j.append((c, np.asarray(lab))),
+                       observe_every=7)
+    plain = ji.build_trees(jnp.asarray(pts), jnp.asarray(m), JIso(**cfg))
+
+    def observer(cycle, points, labels, order):
+        assert all(isinstance(v, torch.Tensor) for v in (points, labels, order))
+        calls_t.append((cycle, labels.numpy().copy()))
+
+    b = ti.build_trees(pts, m, TIso(**cfg), observer=observer, observe_every=7, device="cpu")
+    assert [c for c, _ in calls_t] == [c for c, _ in calls_j] and len(calls_t) >= 2
+    for (_, lj), (_, lt) in zip(calls_j, calls_t):
+        np.testing.assert_array_equal(lt, lj)
+    for ref in (a, plain):
+        _eq(ref.labels, b.labels)
+        _eq(ref.order, b.order)
+    assert int(a.cycles_run) == b.cycles_run

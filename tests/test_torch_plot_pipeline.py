@@ -1,7 +1,8 @@
 """The PyTorch port's ``process_plot`` against the JAX package on the
 two-tree case of tests/test_plot_pipeline.py: the same tree ids and
-per-tree point counts (isolation is bit-equal), and cylinders within the
-tolerance stated below."""
+per-tree point counts (isolation is bit-equal), cylinders within the
+tolerance stated below, and the reference's ``max_trees``, ``progress``
+and ``TreeResult`` contracts."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,8 +10,10 @@ import pytest
 import torch
 
 from pyqsm_tpu.config import IsolationConfig as JIso
+from pyqsm_tpu.models.plot_pipeline import TreeResult as JTreeResult
 from pyqsm_tpu.models.plot_pipeline import process_plot as j_process_plot
 from pyqsm_tpu_torch.config import IsolationConfig as TIso
+from pyqsm_tpu_torch.models.plot_pipeline import TreeResult as TTreeResult
 from pyqsm_tpu_torch.models.plot_pipeline import process_plot as t_process_plot
 
 
@@ -65,3 +68,40 @@ def test_process_plot_two_trees_matches_jax(jax_run, monkeypatch, claim):
         np.testing.assert_allclose(np.median(rt), np.median(rj), rtol=0.1)
         hj = np.asarray(tj.cylinders.height)[mj].sum()
         np.testing.assert_allclose(tt.cylinders.height.numpy()[mt].sum(), hj, rtol=0.1)
+
+
+def test_max_trees_and_a_raising_progress_callback(jax_run):
+    """``max_trees=1`` keeps the JAX package's largest tree, and a progress
+    callback that raises is swallowed at every stage (the reference's
+    plot_pipeline.py:69-76) instead of ending the run."""
+    pts, _ = jax_run
+    a = j_process_plot(jnp.asarray(pts), jnp.ones(len(pts), bool), iso_cfg=JIso(**ISO),
+                       max_trees=1, **KW)
+    stages = []
+
+    def progress(stage, s):
+        stages.append(stage)
+        raise RuntimeError("observer failure")
+
+    b = t_process_plot(pts, np.ones(len(pts), bool), iso_cfg=TIso(**ISO), max_trees=1,
+                       progress=progress, device="cpu", **KW)
+    assert [(t.tree_id, t.n_points) for t in b.trees] == [(t.tree_id, t.n_points) for t in a.trees]
+    assert len(b.trees) == 1
+    assert stages == ["isolation", "ladder", "contraction", "topology"]
+    assert b.trees[0].metrics is None and int(b.trees[0].cylinders.count()) >= 1
+
+
+def test_tree_result_has_the_reference_fields():
+    """Code that unpacks the reference's 4-field ``TreeResult`` works on the
+    port's; the metrics stay None until canopy metrics are ported."""
+    assert TTreeResult._fields == JTreeResult._fields
+    tree_id, n_points, cylinders, metrics = TTreeResult(3, 10, None)
+    assert (tree_id, n_points, metrics) == (3, 10, None)
+
+
+def test_with_metrics_raises_until_canopy_metrics_are_ported():
+    """``with_metrics=True`` raises instead of returning trees without
+    their metrics."""
+    with pytest.raises(NotImplementedError, match="canopy"):
+        t_process_plot(np.zeros((4, 3), np.float32), np.ones(4, bool), with_metrics=True,
+                       device="cpu")

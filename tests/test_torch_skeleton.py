@@ -1,7 +1,8 @@
 """Contraction, topology and QSM of the PyTorch port against the JAX
 package on the CPU: one contraction step on a carried-across Laplacian,
-the batched single-level and two-level contractions, and topology/QSM on
-identical contracted input."""
+the batched single-level and two-level contractions with default and
+non-default PCG budgets, the banded guard's overflow rescues, and
+topology/QSM on identical contracted input."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,3 +101,112 @@ def test_topology_and_qsm_on_same_contracted_cloud():
         np.testing.assert_allclose(getattr(ct, f).numpy(), np.asarray(getattr(cj, f)),
                                    rtol=1e-5, atol=1e-6, err_msg=f)
     assert int(ct.count()) >= 1
+
+
+@pytest.mark.parametrize("cap,n_live,kw", [
+    (2048, 2000, dict(cg_iters=40, cg_iters_first=50)),
+    (8192, 3000, dict(coarse_stride=2, cg_iters=60, cg_iters_first=100, cg_iters_polish=25)),
+], ids=["single_level", "two_level_stride2"])
+def test_extract_skeleton_batch_budgets_match_jax(cap, n_live, kw):
+    """The PCG budgets and the coarse stride reach the solves as in the JAX
+    package: same iteration counts, contracted points within the stated
+    tolerance. 8192 rows take the two-level path only at stride 2."""
+    pts, m = _batch(cap, n_live, trees=1)
+    a = jsk.extract_skeleton_batch(jnp.asarray(pts), jnp.asarray(m), **kw)
+    b = tsk.extract_skeleton_batch(pts, m, device="cpu", **kw)
+    np.testing.assert_array_equal(b.iterations.numpy(), np.asarray(a.iterations))
+    # the final mass ratio is a mean kNN-ball area (∝ mean kNN distance²)
+    # of a cloud contracted to mm scale, where positions differ by a few mm
+    # at the 99th percentile: it agrees within 10 %
+    np.testing.assert_allclose(b.volume_ratio.numpy(), np.asarray(a.volume_ratio), rtol=0.1)
+    for f in ("contracted", "total_shift", "first_shift"):
+        d = np.abs(getattr(b, f).numpy() - np.asarray(getattr(a, f)))[m]
+        assert np.percentile(d, 99) < 5e-3, f
+        assert np.median(d) < 5e-4, f
+    # the budgets change the result: the defaults land elsewhere
+    c = tsk.extract_skeleton_batch(pts, m, device="cpu")
+    assert np.abs(c.contracted.numpy() - b.contracted.numpy())[m].max() > 1e-3
+
+
+@pytest.mark.parametrize("kw", [dict(fps_fraction=0.2, min_fps=40), dict(dedupe_voxel=0.0),
+                                dict(min_fps=300)], ids=["fraction", "no_dedupe", "min_fps"])
+def test_topology_keywords_match_jax(kw):
+    """``fps_fraction``, ``min_fps`` and ``dedupe_voxel`` pick the JAX
+    package's FPS samples and graph on identical contracted input."""
+    pts, m = _batch(2048, 2000, trees=1)
+    a = jsk.extract_skeleton_batch(jnp.asarray(pts), jnp.asarray(m))
+    c, s = np.array(a.contracted[0]), np.array(a.total_shift[0])
+    tj = jsk.extract_topology(jnp.asarray(c), jnp.asarray(m[0]), jnp.asarray(s), 15, **kw)
+    tt = tsk.extract_topology(torch.as_tensor(c), torch.as_tensor(m[0]), torch.as_tensor(s), 15,
+                              **kw)
+    base = tsk.extract_topology(torch.as_tensor(c), torch.as_tensor(m[0]), torch.as_tensor(s), 15)
+    np.testing.assert_array_equal(tt.fps_idx.numpy(), np.asarray(tj.fps_idx))
+    np.testing.assert_array_equal(tt.topology.vertex_mask.numpy(),
+                                  np.asarray(tj.topology.vertex_mask))
+    for f in ("edge_u", "edge_v", "edge_mask"):
+        np.testing.assert_array_equal(getattr(tt.graph, f).numpy(), np.asarray(getattr(tj.graph, f)))
+    assert int(tt.topology.vertex_mask.sum()) != int(base.topology.vertex_mask.sum())
+
+
+def _nonlocal_banded_batch(rng, n=1024, k=6, spill_cap=8):
+    """A random non-local graph (tests/test_skeleton.py's ``_random_ell_256``)
+    whose banded form overflows a tiny spill: the JAX package's Laplacian
+    and the port's copy of it, both batched [1, ...]."""
+    import jax
+
+    from pyqsm_tpu.ops import sparse as jsp
+
+    idx = np.full((n, k), -1, np.int32)
+    w = np.zeros((n, k), np.float32)
+    for i in range(n):
+        nb = rng.choice(np.delete(np.arange(n), i), k - 1, replace=False)
+        idx[i, :k - 1] = nb
+        w[i, :k - 1] = rng.uniform(0.1, 1.0, k - 1)
+    L = jsp.ELLLaplacian(jnp.asarray(idx), jnp.asarray(w), jnp.asarray(w.sum(1)), jnp.ones(n))
+    b_w, s_i, s_j, s_w, over = jsp.build_banded(L.nbr_idx, L.w, spill_cap)
+    assert bool(over)
+    Lj = jax.tree.map(lambda a: a[None], L._replace(b_w=b_w, s_i=s_i, s_j=s_j, s_w=s_w,
+                                                     s_overflow=over))
+    Lt = state_from_numpy("laplacian", {f: None if getattr(Lj, f) is None
+                                        else np.asarray(getattr(Lj, f)) for f in Lj._fields},
+                          batched=True, device="cpu")
+    return Lj, Lt
+
+
+@pytest.mark.parametrize("cloud", ["gaussian", "dense_knn"], ids=["re_morton", "ell_fallback"])
+def test_banded_guard_rescues_overflow_as_jax(rng, cloud):
+    """``_banded_guard`` on a flagged overflow (the oracle of
+    tests/test_skeleton.py:366-393): it re-Mortons the batch on current
+    positions and rebuilds; if the rebuilt band still overflows it drops
+    to the exact ELL form. Both rescues give the JAX package's permutation,
+    form and graph."""
+    n = 1024
+    Lj, Lt = _nonlocal_banded_batch(rng, n)
+    if cloud == "gaussian":  # a compact cloud: re-sorting fixes the band
+        pts = rng.normal(size=(1, n, 3)).astype(np.float32)
+        k = 8
+    else:  # 64-NN in a uniform cube: neighbors span many Morton blocks
+        pts = rng.uniform(size=(1, n, 3)).astype(np.float32)
+        k = 64
+    msk = np.ones((1, n), bool)
+    z2, z3 = np.zeros((1, n), np.float32), np.zeros((1, n, 3), np.float32)
+    out_j = jsk._banded_guard(jnp.asarray(pts), jnp.asarray(msk), jnp.asarray(z3),
+                              jnp.asarray(z3), jnp.asarray(z2), jnp.asarray(z2), jnp.asarray(z2),
+                              Lj, None, True, jnp.ones(1, bool), k, 1e-6)
+    T = torch.as_tensor
+    out_t = tsk._banded_guard(T(pts), T(msk), T(z3), T(z3), T(z2), T(z2), T(z2), Lt, None, True,
+                              torch.ones(1, dtype=torch.bool), k, 1e-6)
+    pts_j, L_j, cum_j, banded_j = out_j[0], out_j[7], out_j[8], out_j[9]
+    pts_t, L_t, cum_t, banded_t = out_t[0], out_t[7], out_t[8], out_t[9]
+    assert banded_t == banded_j == (cloud == "gaussian")
+    np.testing.assert_array_equal(cum_t.numpy(), np.asarray(cum_j))
+    assert sorted(cum_t[0].tolist()) == list(range(n))
+    np.testing.assert_array_equal(pts_t.numpy(), np.asarray(pts_j))
+    np.testing.assert_array_equal(L_t.nbr_idx.numpy(), np.asarray(L_j.nbr_idx))
+    np.testing.assert_allclose(L_t.w.numpy(), np.asarray(L_j.w), rtol=1e-5, atol=1e-6)
+    if banded_t:
+        assert not bool(L_t.s_overflow.any())
+        np.testing.assert_array_equal(L_t.s_i.numpy(), np.asarray(L_j.s_i))
+    else:
+        assert L_t.b_w is None and L_j.b_w is None
+        np.testing.assert_array_equal(L_t.t_idx.numpy(), np.asarray(L_j.t_idx))

@@ -1,6 +1,8 @@
 """Parity of the port's banded matvec, sparse operators, Laplacian and PCG
-with the JAX package on the CPU, plus the kernel-vs-plain check that needs
-the card (marked ``gpu``; it skips without one)."""
+with the JAX package on the CPU, the overflow routes (a spill that
+overflows the band, in-degrees that overflow the transpose ELL), plus the
+kernel-vs-plain checks that need the card (marked ``gpu``; they skip
+without one)."""
 
 import jax
 import jax.numpy as jnp
@@ -218,6 +220,85 @@ def test_pcg_freezes_converged_trees():
     x, r = tsp.pcg((L, wl, wh), b, diag, x0=x0, tol=1e-4, max_iters=30)
     assert torch.equal(x[0], x0[0])
     assert float(r[1]) < 0.1 and not torch.equal(x[1], x0[1])
+
+
+def _dense(idx, w, deg):
+    n, k = idx.shape
+    a = np.diag(deg.astype(np.float64))
+    for i in range(n):
+        for s in range(k):
+            if idx[i, s] >= 0:
+                a[i, idx[i, s]] -= w[i, s]
+    return a
+
+
+def _nonlocal_ell(seed, n=1024, k=6):
+    rng = np.random.default_rng(seed)
+    idx = np.full((n, k), -1, np.int32)
+    w = np.zeros((n, k), np.float32)
+    for i in range(n):
+        idx[i, :k - 1] = rng.choice(np.delete(np.arange(n), i), k - 1, replace=False)
+        w[i, :k - 1] = rng.uniform(0.1, 1.0, k - 1)
+    return idx, w
+
+
+def test_banded_spill_heavy_and_overflow():
+    """A non-local graph (the oracle of tests/test_skeleton.py:346-364):
+    with a roomy spill the banded L and Lᵀ applies are exact against the
+    dense matrix; with a tiny spill the build flags its overflow exactly
+    as the JAX package's does."""
+    idx, w = _nonlocal_ell(11)
+    n = idx.shape[0]
+    deg = w.sum(1)
+    A = _dense(idx, w, deg)
+    x = np.random.default_rng(12).normal(size=(n, 2)).astype(np.float32)
+    T = lambda a: torch.as_tensor(a)[None]  # noqa: E731
+    for cap in (6 * n, 8):
+        a = jsp.build_banded(jnp.asarray(idx), jnp.asarray(w), spill_cap=cap)
+        b_w, s_i, s_j, s_w, over = tsp.build_banded(T(idx), T(w), spill_cap=cap)
+        assert bool(over[0]) == bool(a[4]) == (cap == 8)
+        for u, v in zip(a[:4], (b_w, s_i, s_j, s_w)):
+            np.testing.assert_array_equal(np.asarray(u), v[0].numpy())
+        if cap == 8:
+            continue
+        assert int((s_i[0] < n).sum()) > n  # most edges ride the spill
+        L = tsp.ELLLaplacian(T(idx), T(w), T(deg), torch.ones(1, n), b_w=b_w, s_i=s_i, s_j=s_j,
+                             s_w=s_w, s_overflow=over)
+        np.testing.assert_allclose(tsp.laplacian_matvec(L, T(x))[0].numpy(), A @ x,
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(tsp.laplacian_rmatvec(L, T(x))[0].numpy(), A.T @ x,
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kt", [8, 64])
+def test_transpose_ell_overflow_takes_the_exact_scatter(kt):
+    """Every row points at node 0 (in-degree n-1, the oracle of
+    tests/test_skeleton.py:181-215): a transpose ELL of 8 slots flags its
+    overflow and Lᵀx takes the exact scatter; with room the gather is
+    lossless. Both equal the dense Lᵀx and the JAX package's."""
+    rng = np.random.default_rng(13)
+    n, k = 40, 5
+    idx = np.full((n, k), -1, np.int32)
+    w = np.zeros((n, k), np.float32)
+    for i in range(n):
+        nbrs = ([0] if i else []) + list(rng.choice([j for j in range(1, n) if j != i],
+                                                    k - 1 - (1 if i else 0), replace=False))
+        idx[i, :len(nbrs)] = nbrs
+        w[i, :len(nbrs)] = rng.uniform(0.1, 1.0, len(nbrs))
+    deg = w.sum(1)
+    x = rng.normal(size=(n, 3)).astype(np.float32)
+    t_idx, t_w, over = tsp.build_transpose_ell(torch.as_tensor(idx), torch.as_tensor(w), kt=kt)
+    assert bool(over) == (kt == 8)
+    T = lambda a: torch.as_tensor(a)[None]  # noqa: E731
+    L = tsp.ELLLaplacian(T(idx), T(w), T(deg), torch.ones(1, n), t_idx=t_idx[None], t_w=t_w[None],
+                         t_overflow=over[None])
+    y = tsp.laplacian_rmatvec(L, T(x))[0].numpy()
+    np.testing.assert_allclose(y, _dense(idx, w, deg).T @ x, rtol=1e-4, atol=1e-5)
+    jt = jsp.build_transpose_ell(jnp.asarray(idx), jnp.asarray(w), kt=kt)
+    Lj = jsp.ELLLaplacian(jnp.asarray(idx), jnp.asarray(w), jnp.asarray(deg), jnp.ones(n),
+                          t_idx=jt[0], t_w=jt[1], t_overflow=jt[2])
+    np.testing.assert_allclose(y, np.asarray(jsp.laplacian_rmatvec(Lj, jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.gpu

@@ -43,6 +43,16 @@ def test_import_scan_covers_every_port_module():
     assert not set(REQUIRED) - scanned
 
 
+def test_every_kernel_source_is_registered_for_the_build():
+    """Each ``csrc/*.cu`` source has one ``CudaLib`` in the build registry,
+    so the first use of any kernel builds all of them together."""
+    from pyqsm_tpu_torch.ops import band_matvec, cuda_build, mt_raycast  # noqa: F401
+
+    sources = sorted(p.name for p in (ROOT / "pyqsm_tpu_torch" / "csrc").glob("*.cu"))
+    assert sorted(lib.source.name for lib in cuda_build.REGISTRY) == sources
+    assert "band_matvec_bf16.cu" in sources
+
+
 def _entry_points():
     from pyqsm_tpu_torch import convert
     from pyqsm_tpu_torch.models import isolation, plot_pipeline, raycast, skeleton
