@@ -18,7 +18,9 @@ Phases, each printing lines with the elapsed seconds:
    the CPU (the port's plain path) — same tree ids and point counts;
 5. main path: ``process_plot`` on a synthetic plot (the bench's layout and
    settings: 8 trees, 40 000-point skeleton cap) with every kernel launch
-   counter set to 0 just before and read just after;
+   counter set to 0 just before and read just after; then the same call
+   again, which must give equal labels and cylinders bit for bit (the
+   segment sums are deterministic on the card);
 6. Lᵀ path: ``laplacian_rmatvec`` on a banded Laplacian at the fine width
    with its Wᵀ band dropped (through ``band_matvec_t``) against the Wᵀ-band
    route (through ``band_matvec``), counters set to 0 just before;
@@ -40,7 +42,25 @@ Phases, each printing lines with the elapsed seconds:
    own shape ([1, rows/256, 256, 768], C = the run's cluster cap) and at
    C = 128 — 0/1 inputs exactly, random bf16 inputs within
    768·2⁻²⁴·Σ|W||x| — timed beside its byte bound and one ``torch.bmm`` of
-   the bf16 windows.
+   the bf16 windows;
+11. sharded path: 4 ranks (``parallel.mesh.launch``; NCCL with one card a
+   rank where the machine has 4 cards, else gloo with every rank on
+   ``cuda:0``) run ``build_trees(mesh=)`` on the main path's plot under the
+   default claim and under ``PYQSM_CLAIM=band`` — labels, order and cycles
+   must equal phase 9's push and band runs bit for bit, and each rank must
+   launch the halo form of ``band_matvec_bf16`` once a cycle — then
+   ``process_plot(mesh=)`` under the band claim twice (the second, warm,
+   reported) with each rank's counters set to 0 just before: phase 5's
+   trees and point counts; each rank's gathered contraction rows equal,
+   bit for bit, its block of 2 trees contracted alone on one device; rank
+   0's single-device contraction of all 8 trees of the same batch gives
+   phase 5's cylinders exactly; and each rank's cylinder counts and median
+   radii lie within the tolerance stated there of phase 5's;
+12. kernel: the halo (``prepadded``) form of ``band_matvec_bf16`` against
+   its plain version at a rank's shape of phase 11 and at C = 128, with
+   random halo blocks — 0/1 inputs exactly, random bf16 within
+   768·2⁻²⁴·Σ|W||x| — timed beside its byte bound and one ``torch.bmm``
+   of the prebuilt windows.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -68,6 +88,7 @@ BF16_TC_FLOP_S = 989e12  # dense bf16 tensor-core rate
 N_TREES = 8  # the bench's plot layout
 MT_OPS_PER_PAIR = 46  # float32 ops per ray-triangle pair in csrc/mt_raycast.cu
 BUDGET_S = 1000  # wall-clock limit of the whole script, build included
+SHARDED_RANKS = 4  # ranks of the sharded path (phase 11)
 
 
 def log(phase: str, msg: str) -> None:
@@ -217,8 +238,14 @@ def check_lt_path(bm, sp, lap, seed: int, n_trees: int, nb: int) -> dict:
            + sp._spill_apply(L.st_i, L.st_j, L.st_w.abs(), x.abs(), n, transpose=True))
     err = float((y_t - y_ref).abs().max())
     tol = 768 * 2.0 ** -24 * float(mag.max())
+    # the sorted spill sums (``segment_sum``'s segmented reduce) add each
+    # row's terms in index order on either device: the card's equal the CPU's
+    spill_equal = all(torch.equal(
+        sp._spill_apply(a, b, w, x, n, transpose=tr, sorted_dst=True).cpu(),
+        sp._spill_apply(a.cpu(), b.cpu(), w.cpu(), x.cpu(), n, transpose=tr, sorted_dst=True))
+        for a, b, w, tr in ((L.s_i, L.s_j, L.s_w, False), (L.st_i, L.st_j, L.st_w, True)))
     return dict(launches=launches_t, fwd_launches=launches_fwd, max_abs_err=err, tol=tol,
-                ok=err <= tol and bool(torch.isfinite(y_t).all()),
+                ok=err <= tol and bool(torch.isfinite(y_t).all()), spill_equal=spill_equal,
                 spill_overflow=bool(L.s_overflow.any()), shape=list(L.b_w.shape))
 
 
@@ -257,39 +284,49 @@ def check_mt_raycast(mt, origins, dirs, mesh, label: str) -> dict:
                 hit_rays=int(fin.sum()), grays_s=r / (ms * 1e-3) / 1e9)
 
 
-def check_band_bf16(bm, nb: int, c: int, seed: int) -> dict:
-    """bf16 kernel vs plain version at [1, nb, 256, 768] x [1, nb·256, c]:
-    a 0/1 adjacency (~16 of 768 window columns a row, as the claim's) with
-    a one-hot frontier must match exactly; random bf16 inputs within
-    768·2⁻²⁴·Σ|W||x| per output. Then timings of the kernel, the plain
-    version and one ``torch.bmm`` of the bf16 windows, on the 0/1 inputs."""
+def check_band_bf16(bm, nb: int, c: int, seed: int, prepadded: bool = False) -> dict:
+    """bf16 kernel vs plain version at [1, nb, 256, 768] x [1, nb·256, c]
+    (``prepadded``: the halo form, x [1, (nb+2)·256, c] whose two halo
+    blocks are as random as the rest): a 0/1 adjacency (~16 of 768 window
+    columns a row, as the claim's) with a one-hot frontier must match
+    exactly; random bf16 inputs within 768·2⁻²⁴·Σ|W||x| per output. Then
+    timings of the kernel, the plain version and one ``torch.bmm`` of the
+    bf16 windows, on the 0/1 inputs."""
     import torch
 
     bs = bm.BAND_BLOCK
     n = nb * bs
+    nx = n + 2 * bs if prepadded else n
     g = torch.Generator(device="cuda").manual_seed(seed)
     w01 = (torch.rand(1, nb, bs, 3 * bs, generator=g, device="cuda") < 16 / 768).to(torch.bfloat16)
-    lab = torch.randint(0, c, (n,), generator=g, device="cuda")
-    live = torch.rand(n, generator=g, device="cuda") < 0.5
+    lab = torch.randint(0, c, (nx,), generator=g, device="cuda")
+    live = torch.rand(nx, generator=g, device="cuda") < 0.5
     x01 = ((lab[:, None] == torch.arange(c, device="cuda")[None, :]) & live[:, None]).to(
         torch.bfloat16)[None].contiguous()
-    y01 = bm.band_matvec_bf16_cuda(w01, x01)
-    exact = torch.equal(y01, bm.band_matvec_plain(w01, x01))
+
+    def kernel(w, x):
+        return bm.band_matvec_bf16_cuda(w, x, prepadded=prepadded)
+
+    def plain(w, x):
+        return bm.band_matvec_plain(w, x, prepadded=prepadded)
+
+    y01 = kernel(w01, x01)
+    exact = torch.equal(y01, plain(w01, x01))
     wr = torch.randn(1, nb, bs, 3 * bs, generator=g, device="cuda").to(torch.bfloat16)
-    xr = torch.randn(1, n, c, generator=g, device="cuda").to(torch.bfloat16)
-    yr = bm.band_matvec_bf16_cuda(wr, xr)
-    err = (yr - bm.band_matvec_plain(wr, xr)).abs()
-    lim = 768 * 2.0 ** -24 * bm.band_matvec_plain(wr.abs(), xr.abs())
+    xr = torch.randn(1, nx, c, generator=g, device="cuda").to(torch.bfloat16)
+    yr = kernel(wr, xr)
+    err = (yr - plain(wr, xr)).abs()
+    lim = 768 * 2.0 ** -24 * plain(wr.abs(), xr.abs())
     torch.cuda.synchronize()
     within = bool((err <= lim).all())
     max_abs = float(err.max())
     del wr, xr, yr, err, lim
     w2 = w01.reshape(nb, bs, 3 * bs)
-    xw = bm._windows(x01, nb).reshape(nb, 3 * bs, c)
-    ms = time_ms(lambda: bm.band_matvec_bf16_cuda(w01, x01))
-    plain_ms = time_ms(lambda: bm.band_matvec_plain(w01, x01), iters=5, warmup=1)
+    xw = bm._windows(x01, nb, prepadded).reshape(nb, 3 * bs, c)
+    ms = time_ms(lambda: kernel(w01, x01))
+    plain_ms = time_ms(lambda: plain(w01, x01), iters=5, warmup=1)
     bmm_ms = time_ms(lambda: torch.bmm(w2, xw))
-    nbytes = n * (3 * bs * 2 + c * 2 + c * 4)  # W, x read once; y written once
+    nbytes = n * (3 * bs * 2 + c * 4) + nx * c * 2  # W, x read once; y written once
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = 2 * n * 3 * bs * c / BF16_TC_FLOP_S * 1e3
     return dict(shape=[1, nb, bs, 3 * bs], c=c, exact01=exact, within=within,
@@ -372,6 +409,207 @@ def band_claim_path(ti, bm, process_plot, Config, pts, mask, iso_cfg, main_trees
         else:
             os.environ["PYQSM_CLAIM"] = saved
     return out
+
+
+def median_radii(trees) -> list[float]:
+    return [float(t.cylinders.radius[t.cylinders.mask].median()) for t in trees]
+
+
+def cylinder_stats(skels, batch_m, cfg) -> tuple[list[int], list[float]]:
+    """Cylinder counts and median radii of a contracted batch, through
+    ``process_plot``'s own topology calls."""
+    from pyqsm_tpu_torch.models import skeleton as sk
+
+    trees = [sk.skeleton_to_qsm(sk.extract_topology(skels.contracted[i], batch_m[i],
+                                                    skels.total_shift[i], cfg.graph_k_n))
+             for i in range(batch_m.shape[0])]
+    return ([int(c.count()) for c in trees],
+            [float(c.radius[c.mask].median()) for c in trees])
+
+
+def sharded_rank(pts, iso_kw: dict, plot_kw: dict, mesh=None) -> dict:
+    """One rank of phase 11 (every rank gets the same plot): ``build_trees(
+    mesh=)`` under ``PYQSM_CLAIM=band`` and under the default claim, in
+    turns, twice each, then ``process_plot(mesh=)`` under the band claim
+    twice (the first warms the rank's contraction up; the second is
+    reported), each with this rank's launch counters set to 0 just before
+    and read just after. The contraction batch of the reported call is
+    recorded as ``process_plot`` hands it to ``extract_skeleton_batch``;
+    this rank's block of it is then contracted alone on this rank's device
+    and compared with the gathered rows, and rank 0 contracts the whole
+    batch on its device too."""
+    import torch
+
+    from pyqsm_tpu_torch.config import Config, IsolationConfig
+    from pyqsm_tpu_torch.models import isolation as ti
+    from pyqsm_tpu_torch.models import plot_pipeline as pp
+    from pyqsm_tpu_torch.models import skeleton as sk
+    from pyqsm_tpu_torch.ops import band_matvec as bm
+    from pyqsm_tpu_torch.parallel import growth
+
+    dev = mesh.device
+    pts = pts.to(dev)
+    mask = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    iso_cfg = IsolationConfig(**iso_kw)
+    out = dict(rank=mesh.rank, backend=mesh.backend, world=mesh.size, device=str(dev))
+
+    def run(label, fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        bm.LAUNCHES = bm.LAUNCHES_T = bm.LAUNCHES_BF16 = bm.LAUNCHES_BF16_HALO = 0
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        out[label] = dict(s=time.perf_counter() - t, halo_launches=bm.LAUNCHES_BF16_HALO,
+                          bf16_launches=bm.LAUNCHES_BF16, f32_launches=bm.LAUNCHES,
+                          peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        return res
+
+    try:
+        for rnd in (1, 2):
+            for mode in ("band", "default"):
+                if mode == "band":
+                    os.environ["PYQSM_CLAIM"] = "band"
+                else:
+                    os.environ.pop("PYQSM_CLAIM", None)
+                growth.LAST_BAND = None
+                res = run((mode, rnd),
+                          lambda: ti.build_trees(pts, mask, iso_cfg, mesh=mesh, device=dev))
+                out[(mode, rnd)].update(claim=res.claim, cycles=res.cycles_run,
+                                        labels=res.labels.cpu(), order=res.order.cpu(),
+                                        band=growth.LAST_BAND)
+        os.environ["PYQSM_CLAIM"] = "band"
+        batch = {}
+
+        def recording(points, masks, cfg, **kw):  # observes, then calls through
+            skels = extract(points, masks, cfg, **kw)
+            batch.update(points=points, masks=masks, cfg=cfg, skels=skels)
+            return skels
+
+        extract, pp.extract_skeleton_batch = pp.extract_skeleton_batch, recording
+        try:
+            for _ in range(2):
+                res = run("plot", lambda: pp.process_plot(pts, mask, Config(), iso_cfg,
+                                                          mesh=mesh, device=dev, **plot_kw))
+        finally:
+            pp.extract_skeleton_batch = extract
+        out["plot"].update(claim=res.growth.claim, cycles=res.growth.cycles_run,
+                           timings=res.timings,
+                           trees=[(t.tree_id, t.n_points) for t in res.trees],
+                           cylinders=[int(t.cylinders.count()) for t in res.trees],
+                           radius_median=median_radii(res.trees),
+                           finite=all(bool(torch.isfinite(t.cylinders.radius).all())
+                                      for t in res.trees))
+    finally:
+        os.environ.pop("PYQSM_CLAIM", None)
+    # this rank's block of the batch, contracted alone at the batch's tier
+    p, m, cfg, skels = batch["points"], batch["masks"], batch["cfg"], batch["skels"]
+    t = time.perf_counter()
+    alone = sk.extract_skeleton_batch(sk.tree_block(p, mesh.size, mesh.rank),
+                                      sk.tree_block(m, mesh.size, mesh.rank),
+                                      sk.batch_amplification(cfg, m), device=dev)
+    torch.cuda.synchronize(dev)
+    tb = alone.contracted.shape[0]
+    lo, hi = mesh.rank * tb, min((mesh.rank + 1) * tb, p.shape[0])
+    out["block"] = dict(trees=[lo, hi], s=time.perf_counter() - t, equal=all(
+        torch.equal(g[lo:hi], a[:max(hi - lo, 0)]) for g, a in zip(skels, alone)))
+    if mesh.rank == 0:
+        # the whole batch on one device: the 8-tree contraction of phase 5
+        whole = sk.extract_skeleton_batch(p, m, cfg, device=dev)
+        cyl, rad = cylinder_stats(whole, m, cfg)
+        out["whole"] = dict(cylinders=cyl, radius_median=rad, rows_equal_block=all(
+            torch.equal(w[lo:hi], a[:max(hi - lo, 0)]) for w, a in zip(whole, alone)),
+            contracted_max_diff=float((whole.contracted[lo:hi]
+                                       - alone.contracted[:max(hi - lo, 0)]).abs().max()))
+    return out
+
+
+def sharded_path(launch, pts, iso_kw, plot_kw, claim, main_trees, main_cyl, main_rad) -> dict:
+    """Phase 11: the sharded path over ``SHARDED_RANKS`` spawned ranks,
+    checked against phases 5 and 9."""
+    import torch
+
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= SHARDED_RANKS else "gloo"
+    log("sharded", f"{SHARDED_RANKS} ranks, backend {backend}, "
+        f"{'one card a rank' if backend == 'nccl' else 'every rank on cuda:0'}")
+    t = time.perf_counter()
+    ranks = launch(sharded_rank, SHARDED_RANKS, backend, args=(pts.cpu(), iso_kw, plot_kw),
+                   device="cuda" if backend == "nccl" else "cuda:0", timeout=BUDGET_S)
+    launch_s = time.perf_counter() - t
+    want = {"default": claim[("push", 2)]["res"], "band": claim[("band", 2)]["res"]}
+    for r in ranks:
+        for rnd in (1, 2):
+            for mode in ("band", "default"):
+                o = r[(mode, rnd)]
+                log("sharded", f"rank {r['rank']} ({r['device']}, {r['backend']}, world "
+                    f"{r['world']}) build_trees run {rnd} {mode}: claim {o['claim']}, cycles "
+                    f"{o['cycles']}, {o['s']:.4f}s, halo launches {o['halo_launches']}, "
+                    f"max_memory_allocated {o['peak_gib']:.3f} GiB, band {o['band']}")
+        p, blk = r["plot"], r["block"]
+        log("sharded", f"rank {r['rank']} trees {blk['trees'][0]}..{blk['trees'][1] - 1} "
+            f"contracted alone on its device in {blk['s']:.3f}s: equal to the gathered rows "
+            f"bit for bit {blk['equal']}")
+        log("sharded", f"rank {r['rank']} process_plot(mesh=) under the band: claim "
+            f"{p['claim']}, cycles {p['cycles']}, {p['s']:.3f}s, stages {p['timings']}, trees "
+            f"{p['trees']}, cylinders {p['cylinders']} (main path {main_cyl}), median radius "
+            f"{[round(x, 5) for x in p['radius_median']]} (main path "
+            f"{[round(x, 5) for x in main_rad]}), halo launches {p['halo_launches']}, "
+            f"band_matvec launches {p['f32_launches']}, max_memory_allocated "
+            f"{p['peak_gib']:.3f} GiB")
+    whole = ranks[0]["whole"]
+    log("sharded", f"rank 0, the batch's 8 trees contracted together on one device: cylinders "
+        f"{whole['cylinders']} (main path {main_cyl}), median radius "
+        f"{[round(x, 5) for x in whole['radius_median']]}; its rows of trees "
+        f"{ranks[0]['block']['trees']} equal the 2-tree block's bit for bit "
+        f"{whole['rows_equal_block']} (contracted max abs diff "
+        f"{whole['contracted_max_diff']:.3e})")
+    log("sharded", f"launch of {SHARDED_RANKS} ranks {launch_s:.2f}s in all")
+    if whole["cylinders"] != main_cyl or whole["radius_median"] != main_rad:
+        fail("rank 0's single-device contraction of the sharded run's batch differs from the "
+             "main path's: the batch handed to the contraction is not phase 5's")
+    for r in ranks:
+        for (mode, rnd), ran in ((("default", 1), "gather"), (("default", 2), "gather"),
+                                 (("band", 1), "band"), (("band", 2), "band")):
+            o, w = r[(mode, rnd)], want[mode]
+            if o["claim"] != ran:
+                fail(f"sharded build_trees ({mode}) on rank {r['rank']} ran the {o['claim']} "
+                     f"claim, not {ran}")
+            if not (torch.equal(o["labels"], w.labels.cpu()) and torch.equal(
+                    o["order"], w.order.cpu()) and o["cycles"] == w.cycles_run):
+                fail(f"sharded build_trees ({mode}) on rank {r['rank']} differs from the "
+                     f"single-device {w.claim} claim")
+            if mode == "band" and (o["halo_launches"] != o["cycles"] or o["bf16_launches"]):
+                fail(f"rank {r['rank']}: halo launches {o['halo_launches']} != cycles "
+                     f"{o['cycles']} (unpadded bf16 launches {o['bf16_launches']})")
+        p = r["plot"]
+        if p["claim"] != "band" or p["halo_launches"] != p["cycles"]:
+            fail(f"process_plot(mesh=) on rank {r['rank']} did not run the band claim's halo "
+                 f"kernel once a cycle")
+        if p["trees"] != main_trees or not p["finite"]:
+            fail(f"process_plot(mesh=) on rank {r['rank']} found other trees or non-finite "
+                 f"cylinders")
+        if not r["block"]["equal"]:
+            fail(f"rank {r['rank']}: the gathered contraction rows differ from its block of "
+                 f"trees contracted alone")
+        # The gathered rows are each block contracted alone (gated above,
+        # bit for bit), and the batch is phase 5's (rank 0's 8-tree
+        # contraction of it gives phase 5's cylinders exactly). What is
+        # left is the batch's shape: CUDA's reductions over a tree's rows
+        # split by it, so a block of 2 trees and the batch of 8 round
+        # differently, and the contraction turns that last-bit difference
+        # into other FPS picks. On the CPU the two agree bit for bit
+        # (tests/test_torch_parallel_plot.py). Held: a tree's cylinder
+        # count within 15 %, its median radius within 10 %, the plot's
+        # cylinder total within 3 %.
+        cyl, rad = p["cylinders"], p["radius_median"]
+        if (any(abs(a - b) > 0.15 * b for a, b in zip(cyl, main_cyl))
+                or abs(sum(cyl) - sum(main_cyl)) > 0.03 * sum(main_cyl)
+                or any(abs(a - b) > 0.10 * b for a, b in zip(rad, main_rad))):
+            fail(f"process_plot(mesh=) on rank {r['rank']}: cylinders {cyl} / median radii "
+                 f"{rad} outside the stated tolerance of the main path's {main_cyl} / "
+                 f"{main_rad}")
+    return dict(ranks=ranks, backend=backend, launch_s=launch_s)
 
 
 def raycast_path(tr, tmr, rg, vm, mt, pts, cfg, seed: int) -> dict:
@@ -504,6 +742,7 @@ def main() -> None:
         from pyqsm_tpu_torch.ops import raytrace as tr
         from pyqsm_tpu_torch.ops import sparse as sp
         from pyqsm_tpu_torch.ops import voxelmesh as vm
+        from pyqsm_tpu_torch.parallel.mesh import launch
     except ImportError as exc:
         fail(f"the pyqsm_tpu_torch package is not beside this script ({exc})", 3)
 
@@ -569,8 +808,8 @@ def main() -> None:
     # 5. the main path at the bench's widths
     pts = synthetic_plot(args.points, N_TREES, args.seed, "cuda")
     mask = torch.ones(pts.shape[0], dtype=torch.bool, device="cuda")
-    iso_cfg = IsolationConfig(base_min_points=200, low_pctile=4.0, max_dist=0.2, cycles=400,
-                              min_frontier=3)
+    iso_kw = dict(base_min_points=200, low_pctile=4.0, max_dist=0.2, cycles=400, min_frontier=3)
+    iso_cfg = IsolationConfig(**iso_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log("main", f"process_plot on {pts.shape[0]} points, {N_TREES} trees")
@@ -598,15 +837,32 @@ def main() -> None:
         fail("a tree has no cylinders or non-finite cylinder values")
     if launches <= 0:
         fail("the main path never launched band_matvec")
+    # determinism: the same call again gives the same bits
+    t_again = time.perf_counter()
+    again = process_plot(pts, mask, Config(), iso_cfg, **plot_kw, device="cuda")
+    torch.cuda.synchronize()
+    same_bits = torch.equal(again.growth.labels, res.growth.labels) and \
+        len(again.trees) == len(res.trees) and all(
+            torch.equal(getattr(a.cylinders, f), getattr(b.cylinders, f))
+            for a, b in zip(again.trees, res.trees) for f in b.cylinders._fields)
+    log("main", f"second process_plot on the same plot in {time.perf_counter() - t_again:.2f}s "
+        f"(stages {again.timings}): labels and every cylinder field equal bit for bit: "
+        f"{same_bits}")
+    if not same_bits:
+        fail("two process_plot runs on the same plot differ")
+    del again
 
     # 6. the Lᵀ path without a Wᵀ band: band_matvec_t against band_matvec
     lt = check_lt_path(bm, sp, lap, args.seed, N_TREES, 160)
     log("lt_path", f"laplacian_rmatvec {lt['shape']} without b_w_t: band_matvec_t launches "
         f"{lt['launches']} (band_matvec {lt['fwd_launches']}), max_abs_err vs the Wᵀ-band "
         f"route {lt['max_abs_err']:.3e} (tol {lt['tol']:.3e}); spill overflow "
-        f"{lt['spill_overflow']}")
+        f"{lt['spill_overflow']}; sorted spill sums equal the CPU's bit for bit "
+        f"{lt['spill_equal']}")
     if not lt["ok"]:
         fail("Lᵀ x through band_matvec_t disagrees with the Wᵀ-band route")
+    if not lt["spill_equal"]:
+        fail("the sorted spill sums on the card differ from the CPU's")
     if lt["launches"] <= 0 or lt["fwd_launches"] != 0:
         fail("the Lᵀ path without a Wᵀ band did not run through band_matvec_t alone")
 
@@ -655,6 +911,25 @@ def main() -> None:
         if not r["ok"]:
             fail(f"band_matvec_bf16 {label}: kernel disagrees with its plain version")
 
+    # 11. the sharded path over 4 ranks, against phases 5 and 9
+    shd = sharded_path(launch, pts, iso_kw, plot_kw, claim, main_trees, n_cyl,
+                       median_radii(res.trees))
+    rank_band = shd["ranks"][0][("band", 2)]["band"]
+
+    # 12. the halo form of band_matvec_bf16 vs plain at a rank's shape and C = 128
+    halo = {}
+    for label, c in (("rank", rank_band["cluster_cap"]), ("c128", 128)):
+        r = check_band_bf16(bm, rank_band["rows"] // bm.BAND_BLOCK, c, args.seed + 1,
+                            prepadded=True)
+        halo[label] = r
+        log("kernel", f"band_matvec_bf16 halo {label} {r['shape']} C={c}, random halo blocks: "
+            f"0/1 inputs equal {r['exact01']} (max count {r['max_count']:g}), random bf16 "
+            f"within 768·2⁻²⁴·Σ|W||x| {r['within']} (max_abs_err {r['max_abs_err']:.3e}); "
+            f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['gbytes']:.3f} GB), plain {r['plain_ms']:.4f} ms, torch.bmm {r['bmm_ms']:.4f} ms")
+        if not r["ok"]:
+            fail(f"band_matvec_bf16 halo {label}: kernel disagrees with its plain version")
+
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]
         return dict(
@@ -691,6 +966,20 @@ def main() -> None:
                           claim[("push", 2)]["res"].claim: claim[("push", 2)]["s"]},
              c128={k: bf["c128"][k] for k in ("ms", "plain_ms", "bmm_ms", "bound_ms", "bound_by",
                                               "max_abs_err")}),
+        dict(name="band_matvec_bf16_halo", route="cuda",
+             source="pyqsm_tpu_torch/csrc/band_matvec_bf16.cu",
+             replaces="pyqsm_tpu/ops/pallas_kernels.py:183",
+             launches=sum(r["plot"]["halo_launches"] for r in shd["ranks"]),
+             launches_per_rank=[r["plot"]["halo_launches"] for r in shd["ranks"]],
+             max_abs_err=max(halo["rank"]["max_abs_err"], halo["c128"]["max_abs_err"]),
+             ms=halo["rank"]["ms"], plain_ms=halo["rank"]["plain_ms"],
+             bound_ms=halo["rank"]["bound_ms"], bound_by=halo["rank"]["bound_by"],
+             library_ms=halo["rank"]["bmm_ms"], check="pass", shape=halo["rank"]["shape"],
+             c=halo["rank"]["c"], backend=shd["backend"], ranks=SHARDED_RANKS,
+             isolation_s={"sharded band": [r[("band", 2)]["s"] for r in shd["ranks"]],
+                          "sharded default": [r[("default", 2)]["s"] for r in shd["ranks"]]},
+             c128={k: halo["c128"][k] for k in ("ms", "plain_ms", "bmm_ms", "bound_ms",
+                                                "bound_by", "max_abs_err")}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

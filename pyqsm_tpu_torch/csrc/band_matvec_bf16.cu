@@ -12,6 +12,14 @@
 // past either end). x is [T, nb*256, C] bf16 and y [T, nb*256, C] float32,
 // both row-major.
 //
+// Halo form (band_matvec_bf16_halo; the sharded claim of
+// pyqsm_tpu/parallel/growth.py:84-164, _band_apply(prepadded=True)): x is
+// [T, (nb + 2)*256, C] and carries one halo block on each side, the
+// neighbouring shards' rows; block b's window is padded rows
+// [b*256, b*256 + 768), read without any zero fill. Same kernel, a runtime
+// flag: only the window's first row and the x row count change. Its bytes:
+// n*(1536 + 4C) + (n + 512)*2C.
+//
 // Bound: memory at every C <= 128. Per output row the tile is 1536 B and
 // the product 2*768*C flops: at C = 128 that is 128 flop/byte, below the
 // card's ~295 flop/byte bf16 tensor-core ridge. So the design streams W once
@@ -94,7 +102,7 @@ __device__ __forceinline__ void load_chunk(bf16* sa, bf16* sb, const bf16* tile,
 template <int C>
 __global__ void __launch_bounds__(kThreads)
 band_matvec_bf16_kernel(const bf16* __restrict__ bw, const bf16* __restrict__ x,
-                        float* __restrict__ y, int nb) {
+                        float* __restrict__ y, int nb, int halo) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   using L = Layout<C>;
@@ -103,10 +111,12 @@ band_matvec_bf16_kernel(const bf16* __restrict__ bw, const bf16* __restrict__ x,
   const int b = blockIdx.x;
   const int t = blockIdx.y;
   const int warp = threadIdx.x >> 5;
-  const long long n = static_cast<long long>(nb) * kBS;
+  const long long n = static_cast<long long>(nb) * kBS;       // output rows
+  const long long nx = halo ? n + 2 * kBS : n;                  // x rows
   const bf16* tile = bw + (static_cast<long long>(t) * nb + b) * kBS * kW3;
-  const bf16* xt = x + static_cast<long long>(t) * n * C;
-  const long long base = (static_cast<long long>(b) - 1) * kBS;
+  const bf16* xt = x + static_cast<long long>(t) * nx * C;
+  // first x row of the window: block b-1, or padded block b in the halo form
+  const long long base = (static_cast<long long>(b) - (halo ? 0 : 1)) * kBS;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kNT];
 #pragma unroll
@@ -114,11 +124,11 @@ band_matvec_bf16_kernel(const bf16* __restrict__ bw, const bf16* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < kNT; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  load_chunk<C>(smem, smem + L::kAElems, tile, xt, base, n, 0);
+  load_chunk<C>(smem, smem + L::kAElems, tile, xt, base, nx, 0);
   cp_async_commit();
   for (int c = 0; c < kChunks; ++c) {
     bf16* nxt = smem + ((c + 1) & 1) * L::kStage;
-    if (c + 1 < kChunks) load_chunk<C>(nxt, nxt + L::kAElems, tile, xt, base, n, c + 1);
+    if (c + 1 < kChunks) load_chunk<C>(nxt, nxt + L::kAElems, tile, xt, base, nx, c + 1);
     cp_async_commit();   // possibly empty group: keeps the wait count uniform
     cp_async_wait_one(); // this thread's copies of chunk c have landed
     __syncthreads();     // ... and everyone else's
@@ -150,7 +160,8 @@ band_matvec_bf16_kernel(const bf16* __restrict__ bw, const bf16* __restrict__ x,
 }
 
 template <int C>
-int launch(const bf16* bw, const bf16* x, float* y, int trees, int nb, cudaStream_t stream) {
+int launch(const bf16* bw, const bf16* x, float* y, int trees, int nb, int halo,
+           cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -160,8 +171,24 @@ int launch(const bf16* bw, const bf16* x, float* y, int trees, int nb, cudaStrea
     configured = true;
   }
   const dim3 grid(static_cast<unsigned>(nb), static_cast<unsigned>(trees));
-  band_matvec_bf16_kernel<C><<<grid, kThreads, Layout<C>::kBytes, stream>>>(bw, x, y, nb);
+  band_matvec_bf16_kernel<C><<<grid, kThreads, Layout<C>::kBytes, stream>>>(bw, x, y, nb, halo);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* bw, const void* x, float* y, int trees, int nb, int c, int halo,
+             void* stream) {
+  if (trees <= 0 || nb <= 0) return 0;
+  if (trees > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* w = static_cast<const bf16*>(bw);
+  const bf16* xv = static_cast<const bf16*>(x);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (c) {
+    case 16: return launch<16>(w, xv, y, trees, nb, halo, s);
+    case 32: return launch<32>(w, xv, y, trees, nb, halo, s);
+    case 64: return launch<64>(w, xv, y, trees, nb, halo, s);
+    case 128: return launch<128>(w, xv, y, trees, nb, halo, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -174,18 +201,15 @@ extern "C" {
 // launch's cudaError_t (0 = success). Does not synchronise.
 int band_matvec_bf16(const void* bw, const void* x, float* y, int trees, int nb, int c,
                      void* stream) {
-  if (trees <= 0 || nb <= 0) return 0;
-  if (trees > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* w = static_cast<const bf16*>(bw);
-  const bf16* xv = static_cast<const bf16*>(x);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c) {
-    case 16: return launch<16>(w, xv, y, trees, nb, s);
-    case 32: return launch<32>(w, xv, y, trees, nb, s);
-    case 64: return launch<64>(w, xv, y, trees, nb, s);
-    case 128: return launch<128>(w, xv, y, trees, nb, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(bw, x, y, trees, nb, c, 0, stream);
+}
+
+// The halo form: as band_matvec_bf16, but x is [trees, (nb + 2)*256, c] with
+// one halo block on each side, and block b's window is x rows
+// [b*256, b*256 + 768) of its tree.
+int band_matvec_bf16_halo(const void* bw, const void* x, float* y, int trees, int nb, int c,
+                          void* stream) {
+  return dispatch(bw, x, y, trees, nb, c, 1, stream);
 }
 
 const char* band_matvec_bf16_error_string(int code) {

@@ -7,15 +7,22 @@ import torch
 DEFAULT_DEVICE = "cuda"
 
 
-def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
+def resolve_device(device: str | torch.device = DEFAULT_DEVICE, mesh=None) -> torch.device:
     """The device an entry point runs on. ``cuda`` is the default; asking
-    for it without a card raises — there is no silent CPU fallback."""
+    for it without a card raises — there is no silent CPU fallback. With a
+    ``parallel.mesh.Mesh`` it is this rank's mesh device, which ``device``
+    must name (or its type, as the default ``cuda`` does); another device
+    raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
-    return dev
+    if mesh is None:
+        return dev
+    if dev.type != mesh.device.type or (dev.index is not None and dev != mesh.device):
+        raise ValueError(f"device {dev} is not this rank's mesh device {mesh.device}")
+    return mesh.device
 
 
 def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:

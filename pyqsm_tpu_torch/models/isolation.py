@@ -10,7 +10,7 @@ takes the minimum active frontier id among its neighbors), ``push``
 default at ≥ 262 144 rows) and the opt-in ``band`` (``PYQSM_CLAIM=band``:
 the one-hot frontier through the block-banded adjacency, kernel
 ``csrc/band_matvec_bf16.cu``, plus the exact spill list). The JAX
-package's sharded path (``mesh=``) is not ported.
+package's sharded path (``mesh=``) runs in ``parallel/growth.py``.
 """
 
 from __future__ import annotations
@@ -49,12 +49,15 @@ class GrowthResult(NamedTuple):
     claim: str = "gather"  # claim kernel that ran ("gather" | "push" | "band")
 
 
-def _retire(labels, order, active, newly, cyc, c, min_frontier):
-    """Shared tail of a claim cycle: record the claims, retire clusters with
-    fewer than ``min_frontier`` new rows, return the next frontier."""
+def _retire(labels, order, active, newly, c, min_frontier, reduce=None):
+    """Shared tail of a claim cycle: retire clusters with fewer than
+    ``min_frontier`` new rows, return the next frontier. ``reduce``: sums
+    the per-cluster counts over the ranks of a sharded claim."""
     key = torch.where(newly, torch.clamp(labels, 0, c - 1), c).long()
     new_counts = torch.zeros(c + 1, dtype=torch.int32, device=labels.device).index_add_(
         0, key, newly.to(torch.int32))[:c]
+    if reduce is not None:
+        new_counts = reduce(new_counts)
     active = active & (new_counts >= min_frontier)
     frontier = newly & active[torch.clamp(labels, 0, c - 1).long()]
     return labels, order, active, frontier
@@ -157,7 +160,7 @@ def _region_grow_banded(b_adj, s_i, s_j, s_w, seed_labels, mask, max_cycles: int
         newly = mask & (labels < 0) & (cand < BIG)
         labels = torch.where(newly, cand, labels)
         order = torch.where(newly, cyc + 1, order).to(torch.int32)
-        labels, order, active, frontier = _retire(labels, order, active, newly, cyc, c,
+        labels, order, active, frontier = _retire(labels, order, active, newly, c,
                                                   min_frontier)
         cyc += 1
     return GrowthResult(labels, order, cyc, active, "band")
@@ -194,7 +197,7 @@ def _region_grow_gather(nbr_idx, seed_labels, mask, max_cycles, min_frontier,
         newly = mask & (labels < 0) & (cand < BIG)
         labels = torch.where(newly, cand, labels)
         order = torch.where(newly, cyc + 1, order).to(torch.int32)
-        labels, order, active, frontier = _retire(labels, order, active, newly, cyc, c,
+        labels, order, active, frontier = _retire(labels, order, active, newly, c,
                                                   min_frontier)
         cyc += 1
     return GrowthResult(labels, order, cyc, active, "gather")
@@ -251,7 +254,7 @@ def _region_grow_push(nbr_idx, seed_labels, mask, max_cycles, min_frontier, clus
         newly = mask & (labels < 0) & (cand < BIG)
         labels = torch.where(newly, cand, labels)
         order = torch.where(newly, cyc + 1, order).to(torch.int32)
-        labels, order, active, frontier = _retire(labels, order, active, newly, cyc, c,
+        labels, order, active, frontier = _retire(labels, order, active, newly, c,
                                                   min_frontier)
         nf = int(frontier.sum())
         cyc += 1
@@ -342,7 +345,7 @@ def _observed_growth(nbr_idx, compact, search, cfg, ccap, rep_pts, observer,
 def build_trees(points, mask, cfg: IsolationConfig | None = None,
                 exclude_regions: list | None = None, neighbor_cap: int = 16,
                 pre_voxel: float | None = None, observer=None, observe_every: int = 20,
-                device: str | torch.device = DEFAULT_DEVICE) -> GrowthResult:
+                mesh=None, device: str | torch.device = DEFAULT_DEVICE) -> GrowthResult:
     """Full isolation: voxel representatives at ``pre_voxel`` (default
     ``max_dist/2``; Morton-ordered) → trunk bases (outside
     ``exclude_regions``) → radius graph (``neighbor_cap`` neighbors) →
@@ -353,8 +356,13 @@ def build_trees(points, mask, cfg: IsolationConfig | None = None,
     every ``observe_every`` cycles with the representatives and their
     current (compacted) labels and claim cycles as torch tensors. Growth
     then runs in chunks with the clusters' activity carried across, as in
-    the JAX package (``isolation.py:608-635``)."""
-    dev = resolve_device(device)
+    the JAX package (``isolation.py:608-635``).
+
+    ``mesh``: a ``parallel.mesh.Mesh`` — every rank calls with the same
+    inputs, the growth runs sharded over the ranks
+    (``parallel.growth.region_grow_sharded``) and every rank gets the full
+    result; ``device`` must name the rank's mesh device."""
+    dev = resolve_device(device, mesh)
     points = as_tensor(points, dev, torch.float32)
     mask = as_tensor(mask, dev, torch.bool)
     cfg = cfg or IsolationConfig()
@@ -380,7 +388,12 @@ def build_trees(points, mask, cfg: IsolationConfig | None = None,
     vals_n = seg_vals[:max(n_seed, 1)].contiguous()
     pos = torch.searchsorted(vals_n, seed_labels.contiguous()).to(torch.int32)
     compact = torch.where(seed_labels >= 0, pos, -1)
-    if observer is not None:
+    if mesh is not None:
+        from pyqsm_tpu_torch.parallel.growth import region_grow_sharded
+
+        res = region_grow_sharded(nbr_idx, compact, search, mesh, max_cycles=cfg.cycles,
+                                  min_frontier=cfg.min_frontier, cluster_cap=ccap)
+    elif observer is not None:
         res = _observed_growth(nbr_idx, compact, search, cfg, ccap, rep_pts, observer,
                                observe_every)
     else:

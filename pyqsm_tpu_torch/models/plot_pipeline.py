@@ -1,6 +1,6 @@
 """Whole-plot pipeline: isolate → per-tree skeleton QSM (counterpart of
-``pyqsm_tpu/models/plot_pipeline.py``; canopy metrics and ``mesh=`` are not
-ported yet).
+``pyqsm_tpu/models/plot_pipeline.py``; canopy metrics are not ported
+yet).
 
 The plot stays on the device; every kept tree is gathered into one
 ``[T, cap]`` buffer, its resolution rung found by a batched binary search
@@ -48,7 +48,7 @@ def _sync(dev: torch.device) -> None:
 def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConfig | None = None,
                  skeleton_voxel: float = 0.05, max_skeleton_points: int = 50_000,
                  min_tree_points: int = 500, with_metrics: bool = False,
-                 max_trees: int | None = None, progress=None,
+                 max_trees: int | None = None, progress=None, mesh=None,
                  device: str | torch.device = DEFAULT_DEVICE) -> PlotResult:
     """Isolate every tree and fit a skeleton QSM per tree, on ``device``
     (``cuda`` unless the caller asks for the CPU).
@@ -59,12 +59,16 @@ def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConf
     raises ``NotImplementedError`` rather than return trees without them.
     ``progress``: optional ``callable(stage, stage_s)`` fired after each
     stage (isolation, ladder, contraction, topology); an exception it
-    raises is swallowed — an observer must not end the run."""
+    raises is swallowed — an observer must not end the run.
+    ``mesh``: a ``parallel.mesh.Mesh`` — every rank calls with the same
+    inputs; the growth runs sharded over the ranks, each rank contracts
+    its block of trees, and every rank returns the full result. ``device``
+    must name the rank's mesh device."""
     if with_metrics:
         raise NotImplementedError(
             "process_plot(with_metrics=True): canopy metrics are not ported yet "
             "(ROADMAP.md §1, the canopy-metrics item)")
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     points = as_tensor(points, dev, torch.float32)
     mask = as_tensor(mask, dev, torch.bool)
     cfg = cfg or Config()
@@ -81,7 +85,7 @@ def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConf
         return time.perf_counter()
 
     t0 = time.perf_counter()
-    growth = build_trees(points, mask, iso_cfg, device=dev)
+    growth = build_trees(points, mask, iso_cfg, mesh=mesh, device=dev)
     seg_order, seg_slab, seg_vals, seg_counts, seg_n = label_segments(growth.labels, u_cap=4096)
     n_uniq = int(seg_n)
     t0 = tick("isolation", t0)
@@ -135,7 +139,7 @@ def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConf
     batch_p, batch_m = batch_p.contiguous(), batch_m.contiguous()
     t0 = tick("ladder", t0)
 
-    skels = extract_skeleton_batch(batch_p, batch_m, cfg.skeletonize, device=dev)
+    skels = extract_skeleton_batch(batch_p, batch_m, cfg.skeletonize, mesh=mesh, device=dev)
     t0 = tick("contraction", t0)
 
     trees: list[TreeResult] = []

@@ -24,6 +24,7 @@ from pyqsm_tpu_torch.ops.graph import SimplifiedGraph, boruvka_mst, simplify_deg
 from pyqsm_tpu_torch.ops.laplacian import point_cloud_laplacian
 from pyqsm_tpu_torch.ops.neighbors import knn
 from pyqsm_tpu_torch.ops.sampling import farthest_point_sampling, voxel_downsample
+from pyqsm_tpu_torch.ops.segment import segment_sum
 from pyqsm_tpu_torch.ops.sparse import ELLLaplacian, morton_codes, normal_diag, pcg
 from pyqsm_tpu_torch.state import Cylinders, Topology
 
@@ -191,7 +192,7 @@ def _outer_loop(pts, masks, L, wl, wh, shift, first, ratio, it, m0_mean, m0, cen
 def extract_skeleton_batch(points, masks, cfg: SkeletonizeConfig | None = None,
                            cg_iters: int = 80, two_level: bool = True, coarse_stride: int = 4,
                            _morton: bool = True, cg_iters_first: int | None = None,
-                           cg_iters_polish: int | None = None,
+                           cg_iters_polish: int | None = None, mesh=None,
                            device: str | torch.device = DEFAULT_DEVICE) -> SkeletonResult:
     """Contract a batch of trees [T, P, 3] (masks [T, P]) onto their
     skeletons. Rows are Morton-ordered internally (the banded Laplacian
@@ -204,13 +205,22 @@ def extract_skeleton_batch(points, masks, cfg: SkeletonizeConfig | None = None,
     solve ``cg_iters_first`` (default 3·``cg_iters``; on the two-level path
     the coarse pass's first solve), and on the two-level path every
     full-resolution solve ``cg_iters_polish`` (default
-    max(``cg_iters``//2, 20))."""
-    dev = resolve_device(device)
+    max(``cg_iters``//2, 20)).
+
+    ``mesh``: a ``parallel.mesh.Mesh`` — every rank calls with the same
+    batch, contracts its own contiguous block of trees (the batch padded
+    with empty trees to a multiple of the rank count) and all-gathers the
+    results; ``device`` must name the rank's mesh device. The
+    amplification tier is chosen from the whole batch's largest tree, as
+    without a mesh."""
+    dev = resolve_device(device, mesh)
     points = as_tensor(points, dev, torch.float32)
     masks = as_tensor(masks, dev, torch.bool)
     cfg = cfg or SkeletonizeConfig()
     budgets = dict(cg_iters=cg_iters, coarse_stride=coarse_stride,
                    cg_iters_first=cg_iters_first, cg_iters_polish=cg_iters_polish)
+    if mesh is not None:
+        return _extract_skeleton_sharded(points, masks, cfg, mesh, two_level, budgets)
     if _morton:
         perm = _morton_perm_batch(points, masks)
         res = extract_skeleton_batch(_take(points, perm), _take(masks, perm), cfg,
@@ -238,6 +248,44 @@ def extract_skeleton_batch(points, masks, cfg: SkeletonizeConfig | None = None,
     return _outer_loop(points, masks, L, wl, wh, zero, zero, ratio, it, m0_mean, m0,
                        center, axes, half, cfg, contraction, termination, banded,
                        cg_iters_first, cg_iters)
+
+
+def batch_amplification(cfg: SkeletonizeConfig, masks: torch.Tensor) -> SkeletonizeConfig:
+    """``cfg`` with the amplification tier that the batch ``masks`` [T, P]
+    picks under ``"auto"`` fixed in it, so that a block of the batch
+    contracts at the whole batch's tier."""
+    if cfg.step_wise_contraction_amplification != "auto":
+        return cfg
+    termination, contraction = set_amplification(int(masks.sum(dim=1).max()),
+                                                  cfg.termination_ratio)
+    return dataclasses.replace(cfg, termination_ratio=termination, init_contraction=contraction,
+                               step_wise_contraction_amplification="fixed")
+
+
+def tree_block(x: torch.Tensor, size: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s contiguous block of a [T, ...] tree batch split over
+    ``size`` ranks: ceil(T/size) trees, padded with zeros (empty trees:
+    all-False masks converge before their first step)."""
+    tb = -(-x.shape[0] // size)
+    blk = x[rank * tb:(rank + 1) * tb]
+    if blk.shape[0] < tb:
+        blk = torch.cat([blk, blk.new_zeros((tb - blk.shape[0],) + tuple(x.shape[1:]))])
+    return blk.contiguous()
+
+
+def _extract_skeleton_sharded(points, masks, cfg, mesh, two_level, budgets) -> SkeletonResult:
+    """This rank's block of trees through ``extract_skeleton_batch`` at the
+    whole batch's amplification tier, then every block's results gathered
+    in rank order: each tree's rows equal the rank's block contracted
+    alone on one device."""
+    from pyqsm_tpu_torch.parallel.mesh import all_gather_rows
+
+    res = extract_skeleton_batch(tree_block(points, mesh.size, mesh.rank),
+                                 tree_block(masks, mesh.size, mesh.rank),
+                                 batch_amplification(cfg, masks), two_level=two_level,
+                                 device=points.device, **budgets)
+    return SkeletonResult(*(all_gather_rows(f.contiguous(), mesh)[:points.shape[0]]
+                            for f in res))
 
 
 def _coarse_transfer(fine_p, fine_m, coarse_p, coarse_m, coarse_shift):
@@ -365,10 +413,8 @@ def skeleton_to_qsm(topo: TopologyResult) -> Cylinders:
     cmag = topo.vertex_cmag
     in_chain = g.chain_id >= 0
     key = torch.where(in_chain, g.chain_id, s).long()
-    csum = torch.zeros(s + 1, dtype=cmag.dtype, device=dev).index_add_(
-        0, key, torch.where(in_chain, cmag, 0.0))[:s]
-    ccnt = torch.zeros(s + 1, dtype=torch.float32, device=dev).index_add_(
-        0, key, in_chain.to(torch.float32))[:s]
+    csum = segment_sum(torch.where(in_chain, cmag, 0.0), key, s)
+    ccnt = segment_sum(in_chain.to(torch.float32), key, s)
     chain_mean = csum / torch.clamp(ccnt, min=1.0)
     u = torch.clamp(g.edge_u, 0, s - 1).long()
     v = torch.clamp(g.edge_v, 0, s - 1).long()

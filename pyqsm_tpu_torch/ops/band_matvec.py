@@ -2,11 +2,14 @@
 their plain PyTorch versions and their launch counters.
 
 - ``band_apply`` (y = W x) replaces ``pyqsm_tpu/ops/pallas_kernels.py:183``
-  ``band_matvec_pallas`` in its two unsharded forms: float32 weights with
-  C = 3 (the contraction's Laplacian; kernel ``csrc/band_matvec.cu``) and
-  bf16 weights with C = cluster_cap in {16, 32, 64, 128} (the banded
-  region-grow claim; kernel ``csrc/band_matvec_bf16.cu``). Both return
-  float32.
+  ``band_matvec_pallas``: float32 weights with C = 3 (the contraction's
+  Laplacian; kernel ``csrc/band_matvec.cu``) and bf16 weights with
+  C = cluster_cap in {16, 32, 64, 128} (the banded region-grow claim;
+  kernel ``csrc/band_matvec_bf16.cu``), the latter also in its halo
+  (``prepadded``) form, where x carries one halo block on each side (the
+  sharded claim's window). All return float32. No caller of the JAX
+  package passes ``prepadded`` with float32 weights, and the float32
+  kernel has no halo form: it raises.
 - ``band_apply_t`` (y = Wᵀ x from the forward tiles) replaces
   ``pallas_kernels.py:227`` ``band_matvec_t_pallas``; kernel
   ``csrc/band_matvec_t.cu``.
@@ -29,20 +32,27 @@ BAND_BLOCK = 256  # rows per band block; window = 3 blocks
 LAUNCHES = 0  # band_matvec
 LAUNCHES_T = 0  # band_matvec_t
 LAUNCHES_BF16 = 0  # band_matvec_bf16
+LAUNCHES_BF16_HALO = 0  # band_matvec_bf16, halo (prepadded) form
 
 LIB = CudaLib("band_matvec.cu", {"band_matvec_f32_c3": ([P, P, P, I, I, P], I)})
 LIB_T = CudaLib("band_matvec_t.cu", {"band_matvec_t_f32_c3": ([P, P, P, I, I, P], I)})
-LIB_BF16 = CudaLib("band_matvec_bf16.cu", {"band_matvec_bf16": ([P, P, P, I, I, I, P], I)})
+LIB_BF16 = CudaLib("band_matvec_bf16.cu", {"band_matvec_bf16": ([P, P, P, I, I, I, P], I),
+                                            "band_matvec_bf16_halo": ([P, P, P, I, I, I, P], I)})
 
 # x widths the bf16 kernel takes: the powers of two that ``build_trees``'
 # cluster cap can take, up to the claim dispatch's cap of 128
 BF16_WIDTHS = (16, 32, 64, 128)
 
 
-def _windows(x: torch.Tensor, nb: int) -> torch.Tensor:
+def _windows(x: torch.Tensor, nb: int, prepadded: bool = False) -> torch.Tensor:
     """x [T, nb·BS, C] -> the concatenated blocks b-1, b, b+1 of every
-    output block, zero past the ends: [T, nb, 3·BS, C]."""
+    output block, zero past the ends: [T, nb, 3·BS, C]. ``prepadded``: x is
+    [T, (nb+2)·BS, C] with one halo block on each side, and block b's
+    window is its padded rows [b·BS, b·BS + 3·BS) — no zero fill."""
     t, _, c = x.shape
+    if prepadded:
+        xb = x.reshape(t, nb + 2, BAND_BLOCK, c)
+        return torch.cat([xb[:, :-2], xb[:, 1:-1], xb[:, 2:]], dim=2)
     xb = x.reshape(t, nb, BAND_BLOCK, c)
     zero = torch.zeros_like(xb[:, :1])
     prev = torch.cat([zero, xb[:, :-1]], dim=1)
@@ -50,30 +60,35 @@ def _windows(x: torch.Tensor, nb: int) -> torch.Tensor:
     return torch.cat([prev, xb, nxt], dim=2)
 
 
-def band_matvec_plain(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def band_matvec_plain(b_w: torch.Tensor, x: torch.Tensor, prepadded: bool = False) -> torch.Tensor:
     """Plain version: y[t, i] = Σ_j W_ij x_j as the window einsum of the
-    JAX package's ``_band_apply`` (``sparse.py:227-239``). W and x are
-    upcast to float32 first — the einsum's ``preferred_element_type=
-    float32`` — so bf16 0/1 inputs give exact integer counts."""
+    JAX package's ``_band_apply`` (``sparse.py:215-239``), ``prepadded`` as
+    there. W and x are upcast to float32 first — the einsum's
+    ``preferred_element_type=float32`` — so bf16 0/1 inputs give exact
+    integer counts."""
     t, nb, bs, _ = b_w.shape
-    y = torch.einsum("tbrc,tbcd->tbrd", b_w.float(), _windows(x.float(), nb))
+    y = torch.einsum("tbrc,tbcd->tbrd", b_w.float(), _windows(x.float(), nb, prepadded))
     return y.reshape(t, nb * bs, x.shape[-1])
 
 
-def _check_band(b_w: torch.Tensor, x: torch.Tensor, what: str,
-                bf16: bool = False) -> tuple[int, int]:
+def _check_band(b_w: torch.Tensor, x: torch.Tensor, what: str, bf16: bool = False,
+                prepadded: bool = False) -> tuple[int, int]:
     """Validate kernel inputs; returns (trees, nb). The kernels take exactly
-    two forms — float32 W and x with C = 3 (``bf16=False``), bf16 W and x
-    with C in ``BF16_WIDTHS`` (``bf16=True``) — and raise on anything else."""
+    these forms — float32 W and x with C = 3 (``bf16=False``), bf16 W and x
+    with C in ``BF16_WIDTHS`` (``bf16=True``), the latter with x
+    [T, (nb+2)·256, C] when ``prepadded`` — and raise on anything else."""
     if b_w.dim() != 4 or b_w.shape[2:] != (BAND_BLOCK, 3 * BAND_BLOCK):
         raise ValueError(f"b_w must be [T, nb, {BAND_BLOCK}, {3 * BAND_BLOCK}], got {tuple(b_w.shape)}")
     t, nb = b_w.shape[:2]
     dtype = torch.bfloat16 if bf16 else torch.float32
     if b_w.dtype != dtype or x.dtype != dtype:
         raise TypeError(f"{what} kernel takes {dtype} weights and x, got {b_w.dtype} and {x.dtype}")
+    if prepadded and not bf16:
+        raise ValueError(f"{what} kernel has no halo (prepadded) form")
     widths = BF16_WIDTHS if bf16 else (3,)
-    if x.dim() != 3 or x.shape[:2] != (t, nb * BAND_BLOCK) or x.shape[2] not in widths:
-        raise ValueError(f"x must be [{t}, {nb * BAND_BLOCK}, C] with C in {widths}, "
+    rows = (nb + 2 if prepadded else nb) * BAND_BLOCK
+    if x.dim() != 3 or x.shape[:2] != (t, rows) or x.shape[2] not in widths:
+        raise ValueError(f"x must be [{t}, {rows}, C] with C in {widths}, "
                          f"got {tuple(x.shape)}")
     if not (b_w.is_cuda and x.is_cuda and b_w.device == x.device):
         raise ValueError(f"{what} kernel needs b_w and x on one CUDA device")
@@ -102,19 +117,26 @@ def band_matvec_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def band_matvec_bf16_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def band_matvec_bf16_cuda(b_w: torch.Tensor, x: torch.Tensor,
+                          prepadded: bool = False) -> torch.Tensor:
     """The bf16 tensor-core kernel: b_w [T, nb, 256, 768] bf16, x
-    [T, nb·256, C] bf16 with C in {16, 32, 64, 128}, both contiguous on one
-    CUDA device; returns float32 [T, nb·256, C]. Raises on anything else."""
-    global LAUNCHES_BF16
-    t, nb = _check_band(b_w, x, "band_matvec_bf16", bf16=True)
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    [T, nb·256, C] bf16 with C in {16, 32, 64, 128} — or, ``prepadded``,
+    x [T, (nb+2)·256, C] with one halo block on each side — both
+    contiguous on one CUDA device; returns float32 [T, nb·256, C]. Raises
+    on anything else."""
+    global LAUNCHES_BF16, LAUNCHES_BF16_HALO
+    fn = "band_matvec_bf16_halo" if prepadded else "band_matvec_bf16"
+    t, nb = _check_band(b_w, x, fn, bf16=True, prepadded=prepadded)
+    y = torch.empty((t, nb * BAND_BLOCK, x.shape[2]), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = LIB_BF16.load().band_matvec_bf16(b_w.data_ptr(), x.data_ptr(), y.data_ptr(), t, nb,
-                                              x.shape[2], stream)
-    LIB_BF16.check(rc, "band_matvec_bf16")
-    LAUNCHES_BF16 += 1
+        rc = getattr(LIB_BF16.load(), fn)(b_w.data_ptr(), x.data_ptr(), y.data_ptr(), t, nb,
+                                          x.shape[2], stream)
+    LIB_BF16.check(rc, fn)
+    if prepadded:
+        LAUNCHES_BF16_HALO += 1
+    else:
+        LAUNCHES_BF16 += 1
     return y
 
 
@@ -143,17 +165,21 @@ def band_matvec_t_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def band_apply(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Σ_j W_ij x_j for block-banded W, in float32: for a CUDA tensor the
-    kernel of W's dtype (bf16 → ``band_matvec_bf16``, else
-    ``band_matvec``, which raises on anything but float32), for a CPU
-    tensor the plain version."""
+def band_apply(b_w: torch.Tensor, x: torch.Tensor, prepadded: bool = False) -> torch.Tensor:
+    """Σ_j W_ij x_j for block-banded W, in float32 (the JAX package's
+    ``_band_apply`` signature; ``prepadded``: x carries one halo block on
+    each side instead of implicit zeros): for a CUDA tensor the kernel of
+    W's dtype (bf16 → ``band_matvec_bf16``, else ``band_matvec``, which
+    raises on anything but float32 without a halo), for a CPU tensor the
+    plain version."""
     if x.is_cuda:
         if b_w.dtype == torch.bfloat16:
-            return band_matvec_bf16_cuda(b_w, x.contiguous())
+            return band_matvec_bf16_cuda(b_w, x.contiguous(), prepadded)
+        if prepadded:
+            _check_band(b_w, x, "band_matvec", prepadded=True)
         return band_matvec_cuda(b_w, x.contiguous())
     if x.device.type == "cpu":
-        return band_matvec_plain(b_w, x)
+        return band_matvec_plain(b_w, x, prepadded)
     raise ValueError(f"band_apply: unsupported device {x.device}")
 
 

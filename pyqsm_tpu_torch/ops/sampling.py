@@ -3,13 +3,15 @@
 
 Sorts that decide an order are stable (``jnp.argsort``/``lexsort`` are), so
 voxel traces, compaction order and label segments equal the JAX package's.
-Segment sums become ``index_add_``, which sums in index order on the CPU
-and with atomics (run-to-run order) on CUDA.
+Float segment sums go through ``ops/segment.segment_sum``: index order on
+the CPU, the same bits on every run on CUDA.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pyqsm_tpu_torch.ops.segment import segment_sum
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -66,11 +68,10 @@ def voxel_downsample_batch(points: torch.Tensor, voxel_sizes: torch.Tensor,
     new_seg = _new_segments(coords_s)
     seg = torch.cumsum(new_seg.to(torch.int64), dim=1) - 1
     gseg = (seg + torch.arange(b, device=dev)[:, None] * n).reshape(-1)
-    seg_sum = torch.zeros(b * n, 3, dtype=points.dtype, device=dev).index_add_(
-        0, gseg, torch.where(live_s[..., None], pts_s, 0.0).reshape(-1, 3))
-    seg_cnt = torch.zeros(b * n, dtype=torch.float32, device=dev).index_add_(
-        0, gseg, live_s.to(torch.float32).reshape(-1))
-    centroid = seg_sum / torch.clamp(seg_cnt, min=1.0)[:, None]
+    # seg ascends: segments are numbered in sorted order
+    seg_sum = segment_sum(torch.where(live_s[..., None], pts_s, 0.0), seg, n, sorted_index=True)
+    seg_cnt = segment_sum(live_s.to(torch.float32), seg, n, sorted_index=True)
+    centroid = (seg_sum / torch.clamp(seg_cnt, min=1.0)[..., None]).reshape(b * n, 3)
     first_orig = torch.full((b * n,), INT32_MAX, dtype=torch.int64, device=dev).scatter_reduce_(
         0, gseg, torch.where(live_s, order, INT32_MAX).reshape(-1), "amin")
     rep_row = first_orig[gseg].reshape(b, n)  # per sorted row

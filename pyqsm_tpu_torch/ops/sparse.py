@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from pyqsm_tpu_torch.ops.band_matvec import BAND_BLOCK, band_apply, band_apply_t
+from pyqsm_tpu_torch.ops.segment import segment_sum
 
 
 class ELLLaplacian(NamedTuple):
@@ -71,10 +72,12 @@ def morton_codes(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(finite, code, 2 ** 31 - 1)
 
 
-def build_banded(nbr_idx: torch.Tensor, w: torch.Tensor, spill_cap: int):
+def build_banded(nbr_idx: torch.Tensor, w: torch.Tensor, spill_cap: int, start: int = 0):
     """Block-banded form of [T, N, k] ELL weights: ``(b_w, s_i, s_j, s_w,
     overflow)``. Out-of-window edges go to the spill list, front-packed in
-    row-major edge order (so ``s_i`` ascends)."""
+    row-major edge order (so ``s_i`` ascends). ``start``: the rows are
+    global rows ``[start, start + N)`` and ``nbr_idx`` holds global
+    columns (a shard; see ``build_banded_window``)."""
     t, n, k = nbr_idx.shape
     bs = BAND_BLOCK
     nb = n // bs
@@ -83,12 +86,15 @@ def build_banded(nbr_idx: torch.Tensor, w: torch.Tensor, spill_cap: int):
     dev = nbr_idx.device
     row = torch.arange(n, device=dev)[:, None]
     blk = row // bs
-    cpos = nbr_idx.long() - (blk - 1) * bs
+    cpos = nbr_idx.long() - start - (blk - 1) * bs
     valid = nbr_idx >= 0
     in_win = valid & (cpos >= 0) & (cpos < 3 * bs)
     m = nb * bs * 3 * bs
     flat = torch.where(in_win, (torch.clamp(blk, max=nb - 1) * bs + row % bs) * (3 * bs) + cpos, m)
     flat = flat + torch.arange(t, device=dev)[:, None, None] * (m + 1)
+    # every live tile slot takes exactly one edge (neighbour lists hold no
+    # column twice) and the spare slot m only zeros, so the atomic adds give
+    # the same bits in any order
     b_w = torch.zeros(t * (m + 1), dtype=w.dtype, device=dev).index_add_(
         0, flat.reshape(-1), torch.where(in_win, w, 0.0).reshape(-1))
     b_w = b_w.reshape(t, m + 1)[:, :m].reshape(t, nb, bs, 3 * bs).contiguous()
@@ -107,6 +113,19 @@ def build_banded(nbr_idx: torch.Tensor, w: torch.Tensor, spill_cap: int):
     return b_w, s_i, s_j, s_w, overflow
 
 
+def build_banded_window(nbr_idx: torch.Tensor, w: torch.Tensor, start: int, spill_cap: int):
+    """``build_banded`` for a SHARD (``pyqsm_tpu/ops/sparse.py:144-185``):
+    [n_local, k] rows are the local slice ``[start, start + n_local)`` of
+    a globally ordered array and ``nbr_idx`` carries GLOBAL columns.
+    In-window edges land in the local ±1-block band, applied against the
+    caller's window with one halo block on each side
+    (``band_apply(prepadded=True)``); the spill keeps global columns
+    (``s_j``) with LOCAL rows (``s_i``). Returns ``(b_w [nb, 256, 768],
+    s_i, s_j, s_w [spill_cap], overflow)``."""
+    b_w, s_i, s_j, s_w, over = build_banded(nbr_idx[None], w[None], spill_cap, start=start)
+    return b_w[0], s_i[0], s_j[0], s_w[0], over[0]
+
+
 def band_transpose(b_w: torch.Tensor) -> torch.Tensor:
     """Banded form of Wᵀ from that of W ([T, nb, BS, 3·BS]):
     ``b_w_t[c, q, u·bs+v] = b_w[c-1+u, v, (2-u)·bs+q]``."""
@@ -121,26 +140,23 @@ def band_transpose(b_w: torch.Tensor) -> torch.Tensor:
 
 
 def _spill_apply(s_i, s_j, s_w, x, n, transpose=False, sorted_dst=False):
-    """Exact spill list applied to x [T, N, C] (segment sum by index_add_).
+    """Exact spill list applied to x [T, N, C] (a deterministic segment sum).
 
     ``sorted_dst`` is the JAX signature's promise that the destinations
-    ascend (there a lowering hint for a segmented sum); ``index_add_``
-    needs no such promise, so the result is the same either way. bf16
+    ascend (the row-sorted spill forward, the column-sorted one
+    transposed); here it selects ``segment_sum``'s sorted path. bf16
     weights and x (the banded claim's 0/1 spill and one-hot frontier) are
     accumulated in float32, where the JAX package sums in bf16: every term
     is 0 or 1, so the float32 sums are exact integer counts, and a bf16 sum
     of nonnegative terms is positive exactly when they are — the claim,
     which reads only ``> 0``, is unchanged."""
-    t, _, c = x.shape
+    c = x.shape[-1]
     src = (s_i if transpose else s_j).long()
     dst = (s_j if transpose else s_i).long()
     xs = torch.gather(x, 1, torch.clamp(src, 0, n - 1)[..., None].expand(-1, -1, c))
     acc = torch.promote_types(x.dtype, torch.float32)
     contrib = s_w.to(acc)[..., None] * xs.to(acc)
-    off = torch.arange(t, device=x.device)[:, None] * (n + 1)
-    out = torch.zeros(t * (n + 1), c, dtype=acc, device=x.device)
-    out.index_add_(0, (torch.clamp(dst, max=n) + off).reshape(-1), contrib.reshape(-1, c))
-    return out.reshape(t, n + 1, c)[:, :n]
+    return segment_sum(contrib, dst, n, sorted_index=sorted_dst)
 
 
 def sort_spill_transpose(s_i, s_j, s_w, n: int):
@@ -200,7 +216,7 @@ def laplacian_matvec(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
     if L.b_w is None:
         return _matvec_ell(L, x)
     n = x.shape[1]
-    acc = band_apply(L.b_w, x) + _spill_apply(L.s_i, L.s_j, L.s_w, x, n)
+    acc = band_apply(L.b_w, x) + _spill_apply(L.s_i, L.s_j, L.s_w, x, n, sorted_dst=True)
     return L.deg[..., None] * x - acc
 
 
@@ -209,11 +225,9 @@ def _rmatvec_scatter(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
     t, n, k = L.nbr_idx.shape
     c = x.shape[-1]
     contrib = L.w[..., None] * x[:, :, None, :]
-    dst = torch.where(L.nbr_idx >= 0, L.nbr_idx.long(), n) + \
-        torch.arange(t, device=x.device)[:, None, None] * (n + 1)
-    out = torch.zeros(t * (n + 1), c, dtype=x.dtype, device=x.device)
-    out.index_add_(0, dst.reshape(-1), contrib.reshape(-1, c))
-    return L.deg[..., None] * x - out.reshape(t, n + 1, c)[:, :n]
+    dst = torch.where(L.nbr_idx >= 0, L.nbr_idx.long(), n)
+    out = segment_sum(contrib.reshape(t, n * k, c), dst.reshape(t, n * k), n)
+    return L.deg[..., None] * x - out
 
 
 def laplacian_rmatvec(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
@@ -226,7 +240,7 @@ def laplacian_rmatvec(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
     n = x.shape[1]
     if L.b_w is not None:
         if L.st_j is not None:
-            acc_s = _spill_apply(L.st_i, L.st_j, L.st_w, x, n, transpose=True)
+            acc_s = _spill_apply(L.st_i, L.st_j, L.st_w, x, n, transpose=True, sorted_dst=True)
         else:
             acc_s = _spill_apply(L.s_i, L.s_j, L.s_w, x, n, transpose=True)
         acc_b = band_apply(L.b_w_t, x) if L.b_w_t is not None else band_apply_t(L.b_w, x)
@@ -253,10 +267,8 @@ def normal_diag(L: ELLLaplacian, wl: torch.Tensor, wh: torch.Tensor) -> torch.Te
     """Exact diagonal of the normal operator (Jacobi preconditioner)."""
     t, n, k = L.nbr_idx.shape
     sq = (wl[..., None] * L.w) ** 2
-    dst = torch.where(L.nbr_idx >= 0, L.nbr_idx.long(), n) + \
-        torch.arange(t, device=sq.device)[:, None, None] * (n + 1)
-    scat = torch.zeros(t * (n + 1), dtype=sq.dtype, device=sq.device).index_add_(
-        0, dst.reshape(-1), sq.reshape(-1)).reshape(t, n + 1)[:, :n]
+    dst = torch.where(L.nbr_idx >= 0, L.nbr_idx.long(), n)
+    scat = segment_sum(sq.reshape(t, n * k), dst.reshape(t, n * k), n)
     return (wl * L.deg) ** 2 + scat + wh * wh
 
 

@@ -326,3 +326,137 @@ def test_band_matvec_t_kernel_matches_plain_on_card():
     ref = bm.band_matvec_t_plain(tb.cpu(), tx.cpu())
     mag = bm.band_matvec_t_plain(tb.cpu().abs(), tx.cpu().abs())
     assert torch.all((y.cpu() - ref).abs() <= 2 * 768 * 2.0 ** -24 * mag)
+
+
+def _halo_inputs(seed, nb=3, c=16, onehot=False):
+    """bf16 tiles [nb, 256, 768] and a prepadded x [(nb + 2)·256, c] whose
+    two halo blocks are random, not zero (a shard's neighbours' rows)."""
+    rng = np.random.default_rng(seed)
+    n_pad = (nb + 2) * BS
+    if onehot:
+        adj = (rng.uniform(size=(nb, BS, 3 * BS)) < 0.05).astype(np.float32)
+        lab = rng.integers(0, c + 4, n_pad)  # ids ≥ c: rows that propose nothing
+        x = (lab[:, None] == np.arange(c)[None, :]).astype(np.float32)
+    else:
+        adj = rng.normal(size=(nb, BS, 3 * BS)).astype(np.float32)
+        x = rng.normal(size=(n_pad, c)).astype(np.float32)
+    to_bf16 = lambda a: torch.as_tensor(a).to(torch.bfloat16)  # noqa: E731
+    return to_bf16(adj), to_bf16(x)
+
+
+@pytest.mark.parametrize("onehot", [False, True])
+def test_band_plain_prepadded_matches_jax_einsum_and_pallas(onehot):
+    """The halo (``prepadded``) form of the plain apply against the JAX
+    package's ``_band_apply(prepadded=True)`` einsum and
+    ``band_matvec_pallas(interpret=True, prepadded=True)``: 0/1 tiles with
+    a one-hot x give exact counts, equal bit for bit; random bf16 within
+    768·2⁻²⁴·Σ|W||x| (bf16 products are exact in float32, so only the
+    order of the 768-term sums differs)."""
+    wb, xb = _halo_inputs(11 + onehot, onehot=onehot)
+    y = bm.band_apply(wb[None], xb[None], prepadded=True)[0].numpy()
+    wj = jnp.asarray(wb.float().numpy(), jnp.bfloat16)
+    xj = jnp.asarray(xb.float().numpy(), jnp.bfloat16)
+    y_j = np.asarray(jsp._band_apply(wj, xj, prepadded=True))
+    y_p = np.asarray(band_matvec_pallas(wj, xj, interpret=True, prepadded=True))
+    assert y.dtype == np.float32 and y.shape == (3 * BS, 16)
+    if onehot:
+        np.testing.assert_array_equal(y, y_j)
+        np.testing.assert_array_equal(y, y_p)
+        assert y.max() > 0
+    else:
+        tol = 768 * 2.0 ** -24 * bm.band_matvec_plain(
+            wb.abs()[None], xb.abs()[None], prepadded=True)[0].numpy()
+        assert np.all(np.abs(y - y_j) <= tol) and np.all(np.abs(y - y_p) <= tol)
+
+
+def test_band_prepadded_with_zero_halos_is_the_unpadded_apply():
+    """Zero halo blocks make the halo form the unpadded form; a nonzero
+    halo moves only the first and last blocks' rows."""
+    wb, xb = _halo_inputs(13)
+    inner = xb[BS:-BS]
+    zero_halo = torch.cat([torch.zeros_like(xb[:BS]), inner, torch.zeros_like(xb[:BS])])
+    y0 = bm.band_apply(wb[None], zero_halo[None], prepadded=True)
+    assert torch.equal(y0, bm.band_apply(wb[None], inner[None].contiguous()))
+    y = bm.band_apply(wb[None], xb[None], prepadded=True)
+    assert torch.equal(y[0, BS:2 * BS], y0[0, BS:2 * BS])
+    assert not torch.equal(y[0, :BS], y0[0, :BS]) and not torch.equal(y[0, -BS:], y0[0, -BS:])
+
+
+def test_halo_wrapper_takes_only_its_form():
+    """The halo form is bf16 only, with (nb + 2)·256 x rows: the CUDA
+    wrapper refuses CPU tensors and other row counts, and no float32 halo
+    kernel exists; CPU tensors take the plain version with no launch."""
+    wb = torch.zeros(1, 2, BS, 3 * BS, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # on the CPU
+        bm.band_matvec_bf16_cuda(wb, torch.zeros(1, 4 * BS, 16, dtype=torch.bfloat16),
+                                 prepadded=True)
+    with pytest.raises(ValueError):  # nb·256 rows: the unpadded form's
+        bm._check_band(wb, torch.zeros(1, 2 * BS, 16, dtype=torch.bfloat16), "halo",
+                       bf16=True, prepadded=True)
+    with pytest.raises(ValueError):  # no float32 halo form
+        bm._check_band(wb.float(), torch.zeros(1, 4 * BS, 3), "band_matvec", prepadded=True)
+    before = bm.LAUNCHES_BF16_HALO, bm.LAUNCHES_BF16
+    y = bm.band_apply(wb, torch.ones(1, 4 * BS, 16, dtype=torch.bfloat16), prepadded=True)
+    assert y.shape == (1, 2 * BS, 16) and not y.any()
+    assert (bm.LAUNCHES_BF16_HALO, bm.LAUNCHES_BF16) == before
+
+
+@pytest.mark.parametrize("shard", range(4))
+def test_build_banded_window_matches_jax_per_shard(shard):
+    """One shard's band of a globally ordered graph — local rows, global
+    in-window columns in the band, global spill columns — equals the JAX
+    package's ``build_banded_window`` bit for bit, at a spill cap that
+    overflows on some shards and at one that does not."""
+    idx, w = _graph(5, n=4096)
+    n_local = 1024
+    start = shard * n_local
+    rows = slice(start, start + n_local)
+    for cap in (256, 6 * n_local):
+        a = jsp.build_banded_window(jnp.asarray(idx[rows]), jnp.asarray(w[rows]),
+                                    jnp.int32(start), cap)
+        b = tsp.build_banded_window(torch.as_tensor(idx[rows]), torch.as_tensor(w[rows]), start,
+                                    cap)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(x), y.numpy())
+    assert bool(b[4]) is False  # the 6·n_local cap holds this shard's spill
+
+
+@pytest.mark.gpu
+def test_band_matvec_bf16_halo_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (run chip_smoke.py on the card)")
+    for c in bm.BF16_WIDTHS:
+        wb, xb = _halo_inputs(14, nb=5, c=c, onehot=True)
+        wg, xg = wb.cuda()[None], xb.cuda()[None]
+        before = bm.LAUNCHES_BF16_HALO
+        y = bm.band_apply(wg, xg, prepadded=True)
+        assert bm.LAUNCHES_BF16_HALO == before + 1
+        assert torch.equal(y.cpu(), bm.band_matvec_plain(wb[None], xb[None], prepadded=True))
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_segment_sum_sorted_and_unsorted_equal_index_add(lead):
+    """``segment_sum`` (the deterministic sum behind every float segment sum
+    of the main path) against ``index_add_`` in index order, bit for bit:
+    the sorted path (``segment_reduce``) skips the dead tail past the last
+    destination, the unsorted path drops destinations ≥ n, with and without
+    a leading batch axis."""
+    from pyqsm_tpu_torch.ops.segment import segment_sum
+
+    rng = np.random.default_rng(21)
+    n, e = 40, 300
+    b = int(np.prod(lead)) if lead else 1
+    idx = np.sort(rng.integers(0, n + 1, (b, e)), axis=1)  # n = dead, sorted last
+    vals = (rng.normal(size=(b, e, 3)) * 10.0 ** rng.integers(-3, 4, (b, e, 1))).astype(np.float32)
+    ref = np.zeros((b, n + 1, 3), np.float32)
+    for t in range(b):
+        ref[t] = torch.zeros(n + 1, 3).index_add_(0, torch.as_tensor(idx[t]),
+                                                  torch.as_tensor(vals[t])).numpy()
+    ti, tv = torch.as_tensor(idx).reshape(*lead, e), torch.as_tensor(vals).reshape(*lead, e, 3)
+    want = ref[:, :n].reshape(*lead, n, 3)
+    np.testing.assert_array_equal(segment_sum(tv, ti, n, sorted_index=True).numpy(), want)
+    perm = rng.permutation(e)  # the same entries out of order: the unsorted path
+    got = segment_sum(tv[..., perm, :], ti[..., perm], n).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(segment_sum(tv[..., 0], ti, n, sorted_index=True).numpy(),
+                                  want[..., 0])

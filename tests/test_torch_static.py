@@ -35,7 +35,8 @@ def test_port_imports_no_jax(path):
 # list fails loudly if one of them moves out of its reach)
 REQUIRED = ["ops/band_matvec.py", "ops/cuda_build.py", "ops/mt_raycast.py", "ops/mesh.py",
             "ops/raytrace.py", "ops/voxelmesh.py", "ops/raygrid.py", "models/raycast.py",
-            "convert.py"]
+            "convert.py", "ops/segment.py", "state.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/growth.py"]
 
 
 def test_import_scan_covers_every_port_module():
@@ -54,16 +55,18 @@ def test_every_kernel_source_is_registered_for_the_build():
 
 
 def _entry_points():
-    from pyqsm_tpu_torch import convert
+    from pyqsm_tpu_torch import convert, state
     from pyqsm_tpu_torch.models import isolation, plot_pipeline, raycast, skeleton
+    from pyqsm_tpu_torch.parallel import mesh
 
     return [plot_pipeline.process_plot, isolation.build_trees, skeleton.extract_skeleton_batch,
             convert.state_from_numpy, convert.mesh_from_numpy, raycast.cast_scene,
             raycast.sun_exposure, raycast.sun_sweep, raycast.raycast_to_pcd,
-            raycast.sparse_cast_with_intersections, raycast.mri_slices]
+            raycast.sparse_cast_with_intersections, raycast.mri_slices,
+            mesh.make_mesh, mesh.tree_points_mesh, mesh.launch, state.PointCloud.create]
 
 
-@pytest.mark.parametrize("fn", range(11))
+@pytest.mark.parametrize("fn", range(15))
 def test_entry_points_default_to_cuda(fn):
     f = _entry_points()[fn]
     assert inspect.signature(f).parameters["device"].default == "cuda", f.__qualname__
@@ -85,6 +88,23 @@ def test_cuda_without_card_raises():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         cast_scene(sphere_mesh([0.0, 0, 0], 1.0, device="cpu"))
+
+
+def _mesh_device_rank(mesh=None):
+    return str(mesh.device)
+
+
+def test_sharded_ranks_take_the_card_or_raise():
+    """A rank launched with the default device asks for the card: without
+    one it raises instead of computing on the CPU, and the launcher
+    reports that rank's error; the CPU only when the caller names it."""
+    from pyqsm_tpu_torch.parallel.mesh import launch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="rank 0 failed(.|\n)*CUDA"):
+        launch(_mesh_device_rank, 1, "gloo", timeout=120)
+    assert launch(_mesh_device_rank, 1, "gloo", device="cpu", timeout=120) == ["cpu"]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
