@@ -9,7 +9,7 @@ Phases, each printing lines with the elapsed seconds:
 2. build: one ``nvcc`` per kernel source, all started together, for sm_90a
    (``csrc/band_matvec.cu``, ``csrc/band_matvec_t.cu``, ``csrc/mt_raycast.cu``,
    ``csrc/band_matvec_bf16.cu``; ptxas registers, shared memory and spills of
-   each);
+   each, and the dynamic shared memory of a ``band_matvec_bf16`` block);
 3. kernel: ``band_matvec`` and ``band_matvec_t`` against their plain
    versions at the contraction's fine [8, 160, 256, 768] and coarse
    [8, 40, 256, 768] band shapes, timed with CUDA events beside their
@@ -42,7 +42,8 @@ Phases, each printing lines with the elapsed seconds:
    own shape ([1, rows/256, 256, 768], C = the run's cluster cap) and at
    C = 128 — 0/1 inputs exactly, random bf16 inputs within
    768·2⁻²⁴·Σ|W||x| — timed beside its byte bound and one ``torch.bmm`` of
-   the bf16 windows;
+   the bf16 windows; then every C in {16, 32, 64, 128} on 2 trees at
+   nb = 1 and nb = 133, held to the same two checks;
 11. sharded path: 4 ranks (``parallel.mesh.launch``; NCCL with one card a
    rank where the machine has 4 cards, else gloo with every rank on
    ``cuda:0``) run ``build_trees(mesh=)`` on the main path's plot under the
@@ -60,7 +61,8 @@ Phases, each printing lines with the elapsed seconds:
    its plain version at a rank's shape of phase 11 and at C = 128, with
    random halo blocks — 0/1 inputs exactly, random bf16 within
    768·2⁻²⁴·Σ|W||x| — timed beside its byte bound and one ``torch.bmm``
-   of the prebuilt windows.
+   of the prebuilt windows; then every C on 2 trees at nb = 1 and 133, as
+   in phase 10.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -284,25 +286,24 @@ def check_mt_raycast(mt, origins, dirs, mesh, label: str) -> dict:
                 hit_rays=int(fin.sum()), grays_s=r / (ms * 1e-3) / 1e9)
 
 
-def check_band_bf16(bm, nb: int, c: int, seed: int, prepadded: bool = False) -> dict:
-    """bf16 kernel vs plain version at [1, nb, 256, 768] x [1, nb·256, c]
-    (``prepadded``: the halo form, x [1, (nb+2)·256, c] whose two halo
+def bf16_exact_and_within(bm, t: int, nb: int, c: int, seed: int, prepadded: bool):
+    """bf16 kernel vs plain version at [t, nb, 256, 768] x [t, nb·256, c]
+    (``prepadded``: the halo form, x [t, (nb+2)·256, c] whose two halo
     blocks are as random as the rest): a 0/1 adjacency (~16 of 768 window
     columns a row, as the claim's) with a one-hot frontier must match
-    exactly; random bf16 inputs within 768·2⁻²⁴·Σ|W||x| per output. Then
-    timings of the kernel, the plain version and one ``torch.bmm`` of the
-    bf16 windows, on the 0/1 inputs."""
+    exactly; random bf16 inputs within 768·2⁻²⁴·Σ|W||x| per output.
+    Returns the 0/1 inputs and output, exact, within and the random
+    inputs' max abs error."""
     import torch
 
     bs = bm.BAND_BLOCK
-    n = nb * bs
-    nx = n + 2 * bs if prepadded else n
+    nx = (nb + 2 if prepadded else nb) * bs
     g = torch.Generator(device="cuda").manual_seed(seed)
-    w01 = (torch.rand(1, nb, bs, 3 * bs, generator=g, device="cuda") < 16 / 768).to(torch.bfloat16)
-    lab = torch.randint(0, c, (nx,), generator=g, device="cuda")
-    live = torch.rand(nx, generator=g, device="cuda") < 0.5
-    x01 = ((lab[:, None] == torch.arange(c, device="cuda")[None, :]) & live[:, None]).to(
-        torch.bfloat16)[None].contiguous()
+    w01 = (torch.rand(t, nb, bs, 3 * bs, generator=g, device="cuda") < 16 / 768).to(torch.bfloat16)
+    lab = torch.randint(0, c, (t, nx), generator=g, device="cuda")
+    live = torch.rand(t, nx, generator=g, device="cuda") < 0.5
+    x01 = ((lab[..., None] == torch.arange(c, device="cuda")) & live[..., None]).to(
+        torch.bfloat16).contiguous()
 
     def kernel(w, x):
         return bm.band_matvec_bf16_cuda(w, x, prepadded=prepadded)
@@ -311,29 +312,65 @@ def check_band_bf16(bm, nb: int, c: int, seed: int, prepadded: bool = False) -> 
         return bm.band_matvec_plain(w, x, prepadded=prepadded)
 
     y01 = kernel(w01, x01)
-    exact = torch.equal(y01, plain(w01, x01))
-    wr = torch.randn(1, nb, bs, 3 * bs, generator=g, device="cuda").to(torch.bfloat16)
-    xr = torch.randn(1, nx, c, generator=g, device="cuda").to(torch.bfloat16)
-    yr = kernel(wr, xr)
-    err = (yr - plain(wr, xr)).abs()
+    exact = torch.equal(y01, plain(w01, x01)) and bool(torch.isfinite(y01).all())
+    wr = torch.randn(t, nb, bs, 3 * bs, generator=g, device="cuda").to(torch.bfloat16)
+    xr = torch.randn(t, nx, c, generator=g, device="cuda").to(torch.bfloat16)
+    err = (kernel(wr, xr) - plain(wr, xr)).abs()
     lim = 768 * 2.0 ** -24 * plain(wr.abs(), xr.abs())
     torch.cuda.synchronize()
-    within = bool((err <= lim).all())
-    max_abs = float(err.max())
-    del wr, xr, yr, err, lim
+    return w01, x01, y01, exact, bool((err <= lim).all()), float(err.max())
+
+
+def check_bf16_widths(bm, seed: int, prepadded: bool) -> list[dict]:
+    """Every C of ``BF16_WIDTHS`` on T = 2 trees at nb = 1 (both neighbours
+    out of bounds) and nb = 133 (one block more than the H100's 132 SMs, so
+    one persistent block walks two tiles): 0/1 inputs bit for bit, random
+    bf16 within 768·2⁻²⁴·Σ|W||x|."""
+    out = []
+    for c in bm.BF16_WIDTHS:
+        for nb in (1, 133):
+            *_, exact, within, max_abs = bf16_exact_and_within(bm, 2, nb, c, seed + c + nb,
+                                                               prepadded)
+            out.append(dict(c=c, trees=2, nb=nb, exact01=exact, within=within,
+                            max_abs_err=max_abs))
+    return out
+
+
+def check_band_bf16(bm, nb: int, c: int, seed: int, prepadded: bool = False) -> dict:
+    """``bf16_exact_and_within`` at [1, nb, 256, 768] x [1, nb·256, c], then
+    timings of the kernel, the plain version and one ``torch.bmm`` of the
+    bf16 windows, on the 0/1 inputs."""
+    import torch
+
+    bs = bm.BAND_BLOCK
+    n = nb * bs
+    nx = n + 2 * bs if prepadded else n
+    w01, x01, y01, exact, within, max_abs = bf16_exact_and_within(bm, 1, nb, c, seed, prepadded)
     w2 = w01.reshape(nb, bs, 3 * bs)
     xw = bm._windows(x01, nb, prepadded).reshape(nb, 3 * bs, c)
-    ms = time_ms(lambda: kernel(w01, x01))
-    plain_ms = time_ms(lambda: plain(w01, x01), iters=5, warmup=1)
+    ms = time_ms(lambda: bm.band_matvec_bf16_cuda(w01, x01, prepadded=prepadded))
+    plain_ms = time_ms(lambda: bm.band_matvec_plain(w01, x01, prepadded=prepadded), iters=5,
+                       warmup=1)
     bmm_ms = time_ms(lambda: torch.bmm(w2, xw))
     nbytes = n * (3 * bs * 2 + c * 4) + nx * c * 2  # W, x read once; y written once
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = 2 * n * 3 * bs * c / BF16_TC_FLOP_S * 1e3
     return dict(shape=[1, nb, bs, 3 * bs], c=c, exact01=exact, within=within,
-                max_abs_err=max_abs, ok=exact and within and bool(torch.isfinite(y01).all()),
+                max_abs_err=max_abs, ok=exact and within,
                 max_count=float(y01.max()), ms=ms, plain_ms=plain_ms, bmm_ms=bmm_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations", gbytes=nbytes / 1e9)
+
+
+def report_widths(name: str, widths: list[dict]) -> None:
+    """Log phase 10's or 12's every-width check; fail on any disagreement."""
+    for w in widths:
+        log("kernel", f"{name} T={w['trees']} nb={w['nb']} C={w['c']}: 0/1 inputs equal "
+            f"{w['exact01']}, random bf16 within 768·2⁻²⁴·Σ|W||x| {w['within']} (max_abs_err "
+            f"{w['max_abs_err']:.3e})")
+    bad = [(w["c"], w["nb"]) for w in widths if not (w["exact01"] and w["within"])]
+    if bad:
+        fail(f"{name}: kernel disagrees with its plain version at (C, nb) {bad} on 2 trees")
 
 
 def band_claim_path(ti, bm, process_plot, Config, pts, mask, iso_cfg, main_trees, plot_kw) -> dict:
@@ -767,6 +804,8 @@ def main() -> None:
         for ln in lib.log.splitlines():
             if any(w in ln for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"    ptxas {name}: {ln.strip()}", flush=True)
+    smem = {c: bm.LIB_BF16.load().band_matvec_bf16_smem_bytes(c) for c in bm.BF16_WIDTHS}
+    log("build", f"band_matvec_bf16 dynamic shared memory a block, by C: {smem}")
 
     # 3. band kernels vs plain at the path's shapes
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -910,6 +949,8 @@ def main() -> None:
             f"{r['gbytes']:.3f} GB), plain {r['plain_ms']:.4f} ms, torch.bmm {r['bmm_ms']:.4f} ms")
         if not r["ok"]:
             fail(f"band_matvec_bf16 {label}: kernel disagrees with its plain version")
+    widths = check_bf16_widths(bm, args.seed, prepadded=False)
+    report_widths("band_matvec_bf16", widths)
 
     # 11. the sharded path over 4 ranks, against phases 5 and 9
     shd = sharded_path(launch, pts, iso_kw, plot_kw, claim, main_trees, n_cyl,
@@ -929,6 +970,8 @@ def main() -> None:
             f"{r['gbytes']:.3f} GB), plain {r['plain_ms']:.4f} ms, torch.bmm {r['bmm_ms']:.4f} ms")
         if not r["ok"]:
             fail(f"band_matvec_bf16 halo {label}: kernel disagrees with its plain version")
+    halo_widths = check_bf16_widths(bm, args.seed + 1, prepadded=True)
+    report_widths("band_matvec_bf16 halo", halo_widths)
 
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]
@@ -961,7 +1004,7 @@ def main() -> None:
              ms=bf["claim"]["ms"], plain_ms=bf["claim"]["plain_ms"],
              bound_ms=bf["claim"]["bound_ms"], bound_by=bf["claim"]["bound_by"],
              library_ms=bf["claim"]["bmm_ms"], check="pass", shape=bf["claim"]["shape"],
-             c=bf["claim"]["c"], band_bytes=band["band_bytes"],
+             c=bf["claim"]["c"], band_bytes=band["band_bytes"], widths_checked=widths,
              isolation_s={"band": claim[("band", 2)]["s"],
                           claim[("push", 2)]["res"].claim: claim[("push", 2)]["s"]},
              c128={k: bf["c128"][k] for k in ("ms", "plain_ms", "bmm_ms", "bound_ms", "bound_by",
@@ -976,6 +1019,7 @@ def main() -> None:
              bound_ms=halo["rank"]["bound_ms"], bound_by=halo["rank"]["bound_by"],
              library_ms=halo["rank"]["bmm_ms"], check="pass", shape=halo["rank"]["shape"],
              c=halo["rank"]["c"], backend=shd["backend"], ranks=SHARDED_RANKS,
+             widths_checked=halo_widths,
              isolation_s={"sharded band": [r[("band", 2)]["s"] for r in shd["ranks"]],
                           "sharded default": [r[("default", 2)]["s"] for r in shd["ranks"]]},
              c128={k: halo["c128"][k] for k in ("ms", "plain_ms", "bmm_ms", "bound_ms",

@@ -37,7 +37,8 @@ LAUNCHES_BF16_HALO = 0  # band_matvec_bf16, halo (prepadded) form
 LIB = CudaLib("band_matvec.cu", {"band_matvec_f32_c3": ([P, P, P, I, I, P], I)})
 LIB_T = CudaLib("band_matvec_t.cu", {"band_matvec_t_f32_c3": ([P, P, P, I, I, P], I)})
 LIB_BF16 = CudaLib("band_matvec_bf16.cu", {"band_matvec_bf16": ([P, P, P, I, I, I, P], I),
-                                            "band_matvec_bf16_halo": ([P, P, P, I, I, I, P], I)})
+                                            "band_matvec_bf16_halo": ([P, P, P, I, I, I, P], I),
+                                            "band_matvec_bf16_smem_bytes": ([I], I)})
 
 # x widths the bf16 kernel takes: the powers of two that ``build_trees``'
 # cluster cap can take, up to the claim dispatch's cap of 128
@@ -119,7 +120,8 @@ def band_matvec_cuda(b_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def band_matvec_bf16_cuda(b_w: torch.Tensor, x: torch.Tensor,
                           prepadded: bool = False) -> torch.Tensor:
-    """The bf16 tensor-core kernel: b_w [T, nb, 256, 768] bf16, x
+    """The bf16 tensor-core kernel (TMA loads, ``wgmma``, persistent
+    blocks; ``csrc/band_matvec_bf16.cu``): b_w [T, nb, 256, 768] bf16, x
     [T, nb·256, C] bf16 with C in {16, 32, 64, 128} — or, ``prepadded``,
     x [T, (nb+2)·256, C] with one halo block on each side — both
     contiguous on one CUDA device; returns float32 [T, nb·256, C]. Raises

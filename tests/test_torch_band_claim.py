@@ -5,6 +5,7 @@ claim's band, the banded grow itself, its dispatch, fuzz graphs, its
 fallbacks and ``build_trees`` — labels, orders, activity and cycle counts
 BIT-EQUAL. The bf16 kernel itself needs the card (marked ``gpu``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -276,15 +277,60 @@ def test_bf16_wrapper_takes_only_its_form():
     assert y.dtype == torch.float32 and not y.any() and bm.LAUNCHES_BF16 == before
 
 
+def _two_trees(seed, c, nb, prepadded=False):
+    """Two trees of 0/1 tiles [2, nb, 256, 768] and a one-hot x [2, rows, c]
+    (ids ≥ c: rows that propose nothing), rows = (nb + 2)·256 with the halo
+    blocks (as random as the rest) when ``prepadded``, else nb·256."""
+    rng = np.random.default_rng(seed)
+    rows = (nb + 2 if prepadded else nb) * BS
+    adj = (rng.uniform(size=(2, nb, BS, 3 * BS)) < 0.05).astype(np.float32)
+    lab = rng.integers(0, c + 4, (2, rows))
+    return adj, (lab[..., None] == np.arange(c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("prepadded", [False, True], ids=["unpadded", "halo"])
+@pytest.mark.parametrize("c", bm.BF16_WIDTHS)
+def test_bf16_apply_two_trees_windows_stay_in_their_tree(c, prepadded, nb):
+    """The per-tree window semantics the bf16 kernel's tensor map must
+    reproduce, on T = 2 trees: the plain apply equals the JAX package's
+    ``vmap(_band_apply)`` and ``band_matvec_pallas(interpret=True)`` tree by
+    tree, bit for bit (0/1 tiles, one-hot x: exact counts). The second
+    tree's first and last windows see zeros past its ends (or its own halo
+    blocks), never the first tree's rows: its result equals the tree alone
+    and does not move when the first tree's x changes."""
+    adj, x = _two_trees(100 + c + nb + 7 * prepadded, c, nb, prepadded)
+    to_bf16 = lambda a: torch.as_tensor(a).to(torch.bfloat16)  # noqa: E731
+    wb, xb = to_bf16(adj), to_bf16(x)
+    y = bm.band_apply(wb, xb, prepadded=prepadded).numpy()
+    assert y.dtype == np.float32 and y.shape == (2, nb * BS, c) and y[1].max() > 0
+    wj, xj = jnp.asarray(adj, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16)
+    _eq(jax.vmap(lambda a, b: jsp._band_apply(a, b, prepadded=prepadded))(wj, xj), y)
+    for t in range(2):
+        _eq(band_matvec_pallas(wj[t], xj[t], interpret=True, prepadded=prepadded), y[t])
+    _eq(y[1], bm.band_apply(wb[1:], xb[1:], prepadded=prepadded)[0])
+    x_other = x.copy()
+    x_other[0] = 1.0 - x_other[0]
+    _eq(y[1], bm.band_apply(wb, to_bf16(x_other), prepadded=prepadded)[1])
+
+
 @pytest.mark.gpu
 def test_band_matvec_bf16_kernel_matches_plain_on_card():
+    """The kernel against its plain version on T = 2 trees at nb = 1 (both
+    neighbours out of bounds), 5 and 133 (one block more than the H100's
+    132 SMs), every C: exact counts, including counts past 256."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode (run chip_smoke.py on the card)")
     for c in bm.BF16_WIDTHS:
-        adj, x = _counts_case(6, nb=5, c=c)
-        wb = torch.as_tensor(adj, device="cuda").to(torch.bfloat16)[None]
-        xb = torch.as_tensor(x, device="cuda").to(torch.bfloat16)[None]
-        before = bm.LAUNCHES_BF16
-        y = bm.band_apply(wb, xb)
-        assert bm.LAUNCHES_BF16 == before + 1
-        assert torch.equal(y.cpu(), bm.band_matvec_plain(wb.cpu(), xb.cpu()))  # exact counts
+        for nb in (1, 5, 133):
+            adj, x = _two_trees(6 + nb, c, nb)
+            if nb > 1:  # counts past 256 in the second tree's block 1
+                x[1, :, 0] = 1.0
+                for r in range(BS):
+                    adj[1, 1, r, :257 + r] = 1.0
+            wb = torch.as_tensor(adj, device="cuda").to(torch.bfloat16)
+            xb = torch.as_tensor(x, device="cuda").to(torch.bfloat16)
+            before = bm.LAUNCHES_BF16
+            y = bm.band_apply(wb, xb)
+            assert bm.LAUNCHES_BF16 == before + 1
+            assert torch.equal(y.cpu(), bm.band_matvec_plain(wb.cpu(), xb.cpu()))  # exact counts

@@ -426,12 +426,14 @@ def test_band_matvec_bf16_halo_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode (run chip_smoke.py on the card)")
     for c in bm.BF16_WIDTHS:
-        wb, xb = _halo_inputs(14, nb=5, c=c, onehot=True)
-        wg, xg = wb.cuda()[None], xb.cuda()[None]
-        before = bm.LAUNCHES_BF16_HALO
-        y = bm.band_apply(wg, xg, prepadded=True)
-        assert bm.LAUNCHES_BF16_HALO == before + 1
-        assert torch.equal(y.cpu(), bm.band_matvec_plain(wb[None], xb[None], prepadded=True))
+        for nb in (1, 5, 133):  # 133: one block more than the H100's 132 SMs
+            pairs = [_halo_inputs(14 + t, nb=nb, c=c, onehot=True) for t in range(2)]
+            wb = torch.stack([w for w, _ in pairs])  # T = 2 trees
+            xb = torch.stack([x for _, x in pairs])
+            before = bm.LAUNCHES_BF16_HALO
+            y = bm.band_apply(wb.cuda(), xb.cuda(), prepadded=True)
+            assert bm.LAUNCHES_BF16_HALO == before + 1
+            assert torch.equal(y.cpu(), bm.band_matvec_plain(wb, xb, prepadded=True))
 
 
 @pytest.mark.parametrize("lead", [(), (3,)])
