@@ -1,5 +1,6 @@
 """Fused Möller–Trumbore closest hit + any-hit count: the hand-written CUDA
-kernel, its plain PyTorch version and its launch counter.
+kernel, its plain PyTorch version, the kernel's launch plan and its launch
+counter.
 
 Replaces ``pyqsm_tpu/ops/pallas_kernels.py:110`` ``mt_raycast``. Returns
 ``(t, tri, uv, count)``: the closest hit distance (inf on a miss, in units
@@ -8,13 +9,20 @@ miss; on equal t the lowest id wins), its barycentric (u, v) (0 on a miss)
 and the number of triangles the ray crosses.
 
 ``mt_raycast`` sends CUDA tensors to the kernel (``csrc/mt_raycast.cu``) or
-raises, and CPU tensors to ``mt_raycast_plain``. Both read the same
-structure-of-arrays triangle table (``triangle_soa``) and apply the same
-operations in the same order; the kernel is built with ``-fmad=false`` so
-that on the card the two agree bit for bit.
+raises, and CPU tensors to ``mt_raycast_plain``. Both apply the same
+operations in the same order to the same triangle rows (the plain version
+reads ``triangle_soa``, the kernel builds the rows while it stages them);
+the kernel is built with ``-fmad=false`` so that on the card the two agree
+bit for bit. Where the table is large or the rays alone cannot fill the
+card, ``plan`` splits the triangles into slices, one a block of a
+thread-block cluster, which the kernel merges: the least (t, id) wins,
+carrying its (u, v), and the counts are summed.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -22,12 +30,77 @@ from pyqsm_tpu_torch.ops.cuda_build import I, P, CudaLib
 
 _EPS = 1e-9
 
-# Launches of the CUDA kernel, counted by ``mt_raycast_cuda`` (the only
-# place that launches it).
+# Launches of the CUDA kernel, counted by ``_launch`` (behind
+# ``mt_raycast_cuda``; the only place that launches it).
 LAUNCHES = 0
 
-LIB = CudaLib("mt_raycast.cu", {"mt_raycast_f32": ([P, I, P, P, P, P, P, P, I, P], I)},
+LIB = CudaLib("mt_raycast.cu",
+              {"mt_raycast_f32": ([P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, P], I)},
               extra_flags=("-fmad=false",))
+
+MAX_SLICES = 8  # the portable thread-block cluster size
+MIN_SLICE = 64  # triangles a slice at least, where the rays ask for slices
+WHOLE_TRIANGLES = 576  # a slice up to this many triangles is staged whole
+CHUNK_TRIANGLES = 512  # a larger slice: two buffers of this many
+TRI_BYTES = 64  # a staged triangle: four float4 (v0 | e1 | e2 | p)
+MERGE_BYTES = 20  # a ray's slice result: t, u, v, id, count
+WIDE_FROM = 64 * 256  # 256 threads a block from this many rays, else 128
+
+
+class Plan(NamedTuple):
+    """One launch: ``tiles`` ray tiles of ``threads`` rays (one a thread),
+    each walked by ``slices`` blocks of one cluster, block s through
+    triangles [s·per_slice, (s + 1)·per_slice) ∩ [0, T), staged
+    ``chunk`` at a time into ``buffers`` shared-memory buffers."""
+
+    threads: int
+    slices: int
+    per_slice: int
+    chunk: int
+    buffers: int
+    tiles: int
+
+    @property
+    def smem_bytes(self) -> int:
+        merge = MERGE_BYTES * self.threads if self.slices > 1 else 0
+        return self.buffers * self.chunk * TRI_BYTES + merge
+
+    def chunks(self, n_tri: int) -> list[list[tuple[int, int]]]:
+        """Each slice's staged chunks as (first, end) triangle ids, as the
+        kernel walks them."""
+        out = []
+        for s in range(self.slices):
+            lo = min(s * self.per_slice, n_tri)
+            hi = min(lo + self.per_slice, n_tri)
+            out.append([(c, min(c + self.chunk, hi)) for c in range(lo, hi, self.chunk)])
+        return out
+
+
+def plan(n_rays: int, n_tri: int, sm_count: int) -> Plan:
+    """The kernel's launch plan for R rays and T triangles on a card of
+    ``sm_count`` SMs. Blocks of 256 rays from ``WIDE_FROM`` rays, else
+    128. Slices: enough that each holds at most ``WHOLE_TRIANGLES`` (up to
+    8), then doubled while the grid has fewer than two blocks an SM and
+    each slice keeps ``MIN_SLICE`` triangles."""
+    threads = 256 if n_rays >= WIDE_FROM else 128
+    tiles = max(1, math.ceil(n_rays / threads))
+    slices = min(MAX_SLICES, max(1, math.ceil(n_tri / WHOLE_TRIANGLES)))
+    while (slices < MAX_SLICES and tiles * slices < 2 * sm_count
+           and math.ceil(n_tri / (2 * slices)) >= MIN_SLICE):
+        slices = min(MAX_SLICES, 2 * slices)
+    return _sliced(n_rays, n_tri, threads, slices)
+
+
+def _sliced(n_rays: int, n_tri: int, threads: int, slices: int) -> Plan:
+    """The plan for a given block size and slice count: a slice up to
+    ``WHOLE_TRIANGLES`` is staged whole, a larger one in two buffers of
+    ``CHUNK_TRIANGLES``."""
+    if not 1 <= slices <= MAX_SLICES:
+        raise ValueError(f"mt_raycast: {slices} slices, the cluster takes 1 to {MAX_SLICES}")
+    per = math.ceil(n_tri / slices)
+    chunk = max(1, per if per <= WHOLE_TRIANGLES else CHUNK_TRIANGLES)
+    return Plan(threads, slices, per, chunk, 1 if per <= chunk else 2,
+                max(1, math.ceil(n_rays / threads)))
 
 
 def mt_components(ov, dv, v0, e1, e2, ok):
@@ -106,6 +179,13 @@ def mt_raycast_cuda(origins: torch.Tensor, dirs: torch.Tensor, vertices: torch.T
     """The CUDA kernel: origins/dirs [R, 3] f32, vertices [V, 3] f32,
     triangles [T, 3] int32, all contiguous on one CUDA device. Raises on
     anything else."""
+    return _launch(origins, dirs, vertices, triangles)
+
+
+def _launch(origins: torch.Tensor, dirs: torch.Tensor, vertices: torch.Tensor,
+            triangles: torch.Tensor, slices: int | None = None):
+    """``mt_raycast_cuda`` under the host's plan, or with ``slices``
+    triangle slices (the card's checks run every slice count)."""
     global LAUNCHES
     named = (("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
              ("vertices", vertices, torch.float32), ("triangles", triangles, torch.int32))
@@ -122,20 +202,25 @@ def mt_raycast_cuda(origins: torch.Tensor, dirs: torch.Tensor, vertices: torch.T
     r = origins.shape[0]
     if dirs.shape[0] != r:
         raise ValueError("mt_raycast: origins and dirs differ in length")
-    soa = triangle_soa(vertices, triangles)
-    n_tri = soa.shape[1]
+    n_tri, n_verts = triangles.shape[0], vertices.shape[0]
     if r >= 2 ** 31 or n_tri >= 2 ** 31:
         raise ValueError("mt_raycast: more than 2³¹ rays or triangles")
+    if n_tri and not n_verts:
+        raise ValueError("mt_raycast: triangles index an empty vertex array")
     dev = origins.device
+    pl = plan(r, n_tri, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if slices is not None:
+        pl = _sliced(r, n_tri, pl.threads, slices)
     t = torch.empty(r, device=dev)
     tri = torch.empty(r, dtype=torch.int32, device=dev)
     uv = torch.empty(r, 2, device=dev)
     cnt = torch.empty(r, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = LIB.load().mt_raycast_f32(soa.data_ptr(), n_tri, origins.data_ptr(),
-                                       dirs.data_ptr(), t.data_ptr(), tri.data_ptr(),
-                                       uv.data_ptr(), cnt.data_ptr(), r, stream)
+        rc = LIB.load().mt_raycast_f32(
+            vertices.data_ptr(), n_verts, triangles.data_ptr(), n_tri, origins.data_ptr(),
+            dirs.data_ptr(), t.data_ptr(), tri.data_ptr(), uv.data_ptr(), cnt.data_ptr(), r,
+            pl.threads, pl.slices, pl.per_slice, pl.chunk, pl.tiles, pl.smem_bytes, stream)
     LIB.check(rc, "mt_raycast")
     LAUNCHES += 1
     return t, tri, uv, cnt

@@ -435,15 +435,130 @@ def test_mesh_from_numpy_and_hits_to_numpy_round_trip():
     assert set(hits_to_numpy(h)) == set(jr.Hits._fields)
 
 
+# --- the kernel's launch plan and cross-slice merge, on the CPU ---------
+
+
+@pytest.mark.parametrize("n_tri", [0, 1, 1113, 4095, 12000])
+@pytest.mark.parametrize("n_rays", [1, 4096, 65536, 307200])
+def test_mt_plan_covers_every_triangle_and_ray(n_rays, n_tri):
+    """The host's plan: every triangle in exactly one slice and one staged
+    chunk, in ascending order; every ray in one tile; a cluster of at most
+    8 blocks; two buffers exactly when a slice takes several chunks; the
+    shared memory within a block's limit. On a card of 132 SMs (an H100
+    SXM)."""
+    pl = tmt.plan(n_rays, n_tri, 132)
+    chunks = pl.chunks(n_tri)
+    assert len(chunks) == pl.slices and 1 <= pl.slices <= tmt.MAX_SLICES
+    ids = [i for sl in chunks for lo, hi in sl for i in range(lo, hi)]
+    assert ids == list(range(n_tri))
+    assert all(hi - lo <= pl.chunk for sl in chunks for lo, hi in sl)
+    assert all(len(sl) <= 1 for sl in chunks) == (pl.buffers == 1)
+    assert (pl.tiles - 1) * pl.threads < n_rays <= pl.tiles * pl.threads
+    assert pl.threads in (128, 256)
+    assert pl.smem_bytes <= 232_448  # the dynamic shared memory a block may have
+    if n_tri > tmt.WHOLE_TRIANGLES or (n_tri >= 2 * tmt.MIN_SLICE
+                                       and pl.tiles < 2 * 132):
+        assert pl.slices > 1  # large tables and few rays split the triangles
+    if n_tri <= tmt.WHOLE_TRIANGLES and pl.tiles >= 2 * 132:
+        assert pl.slices == 1
+
+
+@pytest.mark.parametrize("slices", [0, 9, 16])
+def test_mt_plan_refuses_a_cluster_the_kernel_does_not_take(slices):
+    with pytest.raises(ValueError):
+        tmt._sliced(4096, 1113, 128, slices)
+
+
+def _merge_slices(parts):
+    """The kernel's cross-slice merge: ``parts`` are the (t, tri, uv, count)
+    of contiguous triangle slices in ascending order, ids global. The
+    lexicographic least (t, id) wins, carrying its (u, v): slices are
+    taken in order with a strict ``<``, so on equal t the earlier slice,
+    whose ids are lower, keeps the hit. Counts are summed."""
+    t, tri, uv, cnt = parts[0]
+    t = torch.full_like(t, torch.inf)
+    tri = torch.full_like(tri, -1)
+    uv = torch.zeros_like(uv)
+    cnt = torch.zeros_like(cnt)
+    for ts, tris, uvs, cnts in parts:
+        cnt = cnt + cnts
+        better = ts < t
+        t = torch.where(better, ts, t)
+        tri = torch.where(better, tris, tri)
+        uv = torch.where(better[:, None], uvs, uv)
+    return t, tri, uv, cnt
+
+
+def _slice_runs(o, d, v, t, pl):
+    """Independent plain runs over each of the plan's slices, ids made global."""
+    parts = []
+    for sl in pl.chunks(t.shape[0]):
+        lo, hi = (sl[0][0], sl[-1][1]) if sl else (0, 0)
+        tt, tri, uv, cnt = tmt.mt_raycast_plain(o, d, v, t[lo:hi])
+        parts.append((tt, torch.where(tri >= 0, tri + lo, tri), uv, cnt))
+    return parts
+
+
+@pytest.mark.parametrize("scene", ["padded", "coplanar"])
+def test_merge_slices_gives_the_one_tile_result(scene):
+    """The kernel's cross-slice merge (least (t, id), u and v carried,
+    counts summed) over independent per-slice plain runs equals the
+    one-tile plain result bit for bit; on the duplicated coplanar scene
+    every tie crosses a slice, and the lower id must win it."""
+    v, t, o, d = _scene(scene)
+    if scene == "coplanar":
+        t = np.concatenate([t, t])  # ids 2, 3 repeat 0, 1 in the next slice
+    o, d, v, t = _t(o), _t(d), _t(v), _t(t)
+    whole = tmt.mt_raycast_plain(o, d, v, t, ray_tile=len(o), tri_tile=len(t))
+    for slices in (2, 3, 8):
+        parts = _slice_runs(o, d, v, t, tmt._sliced(len(o), len(t), 128, slices))
+        for a, b in zip(_merge_slices(parts), whole):
+            assert torch.equal(a, b)
+    if scene == "coplanar":
+        first, second = _slice_runs(o, d, v, t, tmt._sliced(len(o), len(t), 128, 2))
+        tie = torch.isfinite(first[0]) & (first[0] == second[0])
+        assert bool(tie.all())  # every hit ties across the two slices
+        assert int(whole[1].max()) <= 1
+
+
+def test_zero_edges_never_hit_like_the_valid_flag():
+    """The kernel stages a padding row with e1 = e2 = 0 instead of a valid
+    flag: its det is 0 (NaN for an infinite direction), so ``big`` fails
+    and the row never hits, exactly as the flag makes it."""
+    v, t, o, d = _scene("padded")
+    d = np.concatenate([d, [[np.inf, 0.0, 1.0], [np.nan, 0.0, 1.0]]]).astype(np.float32)
+    o = np.concatenate([o, o[:2]])
+    soa = tmt.triangle_soa(_t(v), _t(t))
+    pad = soa[9] == 0
+    assert bool(pad.any())
+    zeroed = soa.clone()
+    zeroed[3:9, pad] = 0.0
+    ov = tuple(_t(o)[:, a:a + 1] for a in range(3))
+    dv = tuple(_t(d)[:, a:a + 1] for a in range(3))
+    flag = tmt.mt_components(ov, dv, (soa[0], soa[1], soa[2]), (soa[3], soa[4], soa[5]),
+                             (soa[6], soa[7], soa[8]), soa[9] > 0)[0]
+    edges = tmt.mt_components(ov, dv, (zeroed[0], zeroed[1], zeroed[2]),
+                              (zeroed[3], zeroed[4], zeroed[5]),
+                              (zeroed[6], zeroed[7], zeroed[8]), torch.ones_like(pad))[0]
+    assert torch.equal(flag, edges)
+    assert not torch.isfinite(edges[:, pad]).any()
+
+
 @pytest.mark.gpu
 def test_mt_raycast_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode (run chip_smoke.py on the card)")
-    v, t, o, d = _scene("padded")
-    args = [torch.as_tensor(x, device="cuda") for x in (o, d, v, t)]
-    before = tmt.LAUNCHES
-    got = tmt.mt_raycast(*args)
-    assert tmt.LAUNCHES == before + 1
-    want = tmt.mt_raycast_plain(*args)
-    for a, b in zip(got, want):  # same operations in the same order: bit for bit
-        assert torch.equal(a, b)
+    for scene in ("padded", "coplanar"):
+        v, t, o, d = _scene(scene)
+        if scene == "coplanar":
+            t = np.concatenate([t, t])  # every tie crosses a slice: the lower id wins
+        args = [torch.as_tensor(x, device="cuda") for x in (o, d, v, t)]
+        before = tmt.LAUNCHES
+        got = tmt.mt_raycast(*args)
+        assert tmt.LAUNCHES == before + 1
+        want = tmt.mt_raycast_plain(*args)
+        for a, b in zip(got, want):  # same operations in the same order: bit for bit
+            assert torch.equal(a, b)
+        for slices in (1, 2, 8):
+            for a, b in zip(tmt._launch(*args, slices=slices), want):
+                assert torch.equal(a, b)
