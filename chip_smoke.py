@@ -69,7 +69,20 @@ Phases, each printing lines with the elapsed seconds:
    random halo blocks — 0/1 inputs exactly, random bf16 within
    768·2⁻²⁴·Σ|W||x| — timed beside its byte bound and one ``torch.bmm``
    of the prebuilt windows; then every C on 2 trees at nb = 1 and 133, as
-   in phase 10.
+   in phase 10;
+13. canopy path: (a) ``process_plot(with_metrics=True)`` on the main
+   path's plot with the counters set to 0 just before and read just after
+   — phase 5's trees and cylinders bit for bit, phase 5's ``band_matvec``
+   launches and no other, every tree's metrics with the JAX package's
+   keys, disjoint classes covering its live batch rows, finite areas and
+   widths ≥ 0 — then the same call again with ``canopy_metrics``' four
+   parts timed, whose metrics must be equal bit for bit; (b) the single
+   tree: ``skeletonize`` and ``canopy_metrics(shift=None)`` on the largest
+   tree's contraction batch row (the ELL path: no kernel launch), with
+   seconds, iterations and peak memory; (c) ``skeletonize`` and
+   ``canopy_metrics`` on phase 4's two trees on the card and on the CPU —
+   equal iteration counts, contracted points within 5e-3 m at the 99th
+   percentile, class counts within 1 % of the live rows.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -80,6 +93,7 @@ that holds this script without the package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import signal
@@ -826,6 +840,248 @@ def sharded_path(launch, pts, iso_kw, plot_kw, claim, main_trees, main_cyl, main
     return dict(ranks=ranks, backend=backend, launch_s=launch_s)
 
 
+def launch_counts(bm, mt) -> dict:
+    return {"band_matvec": bm.LAUNCHES, "band_matvec_t": bm.LAUNCHES_T,
+            "mt_raycast": mt.LAUNCHES, "band_matvec_bf16": bm.LAUNCHES_BF16,
+            "band_matvec_bf16_halo": bm.LAUNCHES_BF16_HALO}
+
+
+def zero_launches(bm, mt) -> None:
+    bm.LAUNCHES = bm.LAUNCHES_T = bm.LAUNCHES_BF16 = bm.LAUNCHES_BF16_HALO = mt.LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def timing(module, parts: dict):
+    """Within the block each function ``module.<name>`` of ``parts`` (part
+    → name) runs synchronised on the card and appends (seconds, result) to
+    ``times[part]``."""
+    import torch
+
+    times = {p: [] for p in parts}
+    saved = {n: getattr(module, n) for n in parts.values()}
+
+    def wrap(part, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[part].append((time.perf_counter() - t0, r))
+            return r
+        return run
+
+    try:
+        for part, name in parts.items():
+            setattr(module, name, wrap(part, saved[name]))
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+METRIC_KEYS = {"classes", "slice_areas", "width_at_bh", "counts"}
+CLASSES = {"epis", "leaves", "wood"}
+
+
+def metric_values(m: dict) -> list[float]:
+    """Every area and width of one tree's metrics dict."""
+    vals = [m["width_at_bh"], *m["slice_areas"]]
+    for c in m["classes"].values():
+        vals += [c["total"], *c["areas"]]
+    return vals
+
+
+def canopy_path(bm, mt, pp, canopy, pts, mask, Config, iso_cfg, plot_kw, main, main_launches):
+    """Phase 13 (a): ``process_plot(with_metrics=True)`` on the main path's
+    plot, counters set to 0 just before and read just after, the batch
+    recorded as ``process_plot`` hands it to the contraction; then the same
+    call again with the four parts of ``canopy_metrics`` timed (each part
+    synchronised), whose metrics must equal the first call's bit for bit."""
+    import torch
+
+    batch = {}
+
+    def recording(points, masks, cfg, **kw):  # observes, then calls through
+        skels = extract(points, masks, cfg, **kw)
+        batch.update(points=points, masks=masks, skels=skels)
+        return skels
+
+    extract, pp.extract_skeleton_batch = pp.extract_skeleton_batch, recording
+    try:
+        torch.cuda.synchronize()
+        zero_launches(bm, mt)
+        t = time.perf_counter()
+        res = pp.process_plot(pts, mask, Config(), iso_cfg, with_metrics=True, device="cuda",
+                              **plot_kw)
+        torch.cuda.synchronize()
+        plot_s = time.perf_counter() - t
+        counts = launch_counts(bm, mt)
+    finally:
+        pp.extract_skeleton_batch = extract
+    parts = {"epiphyte split": "identify_epiphytes", "clumps": "project_components_in_clusters",
+             "slices": "project_in_slices", "width": "width_at_height"}
+    with timing(canopy, parts) as times:
+        again = pp.process_plot(pts, mask, Config(), iso_cfg, with_metrics=True, device="cuda",
+                                **plot_kw)
+    split_s = {p: [sec for sec, _ in v] for p, v in times.items()}
+    bm_, skels = batch["masks"], batch["skels"]
+    live = [int(r.sum()) for r in bm_]
+    disjoint = []
+    for i in range(len(res.trees)):
+        sp = canopy.identify_epiphytes(skels.first_shift[i], bm_[i])
+        disjoint.append(not bool((sp.epis & sp.leaves).any() | (sp.epis & sp.wood).any()
+                                 | (sp.leaves & sp.wood).any())
+                        and bool(((sp.epis | sp.leaves | sp.wood) == bm_[i]).all()))
+    return dict(res=res, again=again, plot_s=plot_s, counts=counts, split_s=split_s, live=live,
+                disjoint=disjoint, batch=batch, main_topology_s=main.timings["topology_s"],
+                main_launches=main_launches)
+
+
+def check_canopy_path(cp: dict, main) -> None:
+    """Phase 13 (a)'s gates and report."""
+    import torch
+
+    res, again = cp["res"], cp["again"]
+    log("canopy", f"process_plot(with_metrics=True): {len(res.trees)} trees, stages "
+        f"{res.timings} (phase 5 without metrics: topology_s {cp['main_topology_s']}), total "
+        f"{cp['plot_s']:.2f}s; launches {cp['counts']} (phase 5: band_matvec "
+        f"{cp['main_launches']})")
+    for i, t in enumerate(res.trees):
+        m = t.metrics
+        log("canopy", f"tree {t.tree_id}: live batch rows {cp['live'][i]}, counts "
+            f"{m['counts']}, clumps {[len(c['areas']) for c in m['classes'].values()]} "
+            f"(areas total {[round(c['total'], 4) for c in m['classes'].values()]} m²), slice "
+            f"areas {[round(a, 4) for a in m['slice_areas']]} m², width at breast height "
+            f"{m['width_at_bh']:.4f} m; seconds: " + ", ".join(
+                f"{p} {v[i]:.4f}" for p, v in cp["split_s"].items()))
+    sums = {p: sum(v) for p, v in cp["split_s"].items()}
+    log("canopy", f"canopy_metrics seconds over the {len(res.trees)} trees (second call, each "
+        f"part synchronised): " + ", ".join(f"{p} {v:.4f}" for p, v in sums.items())
+        + f"; second call stages {again.timings}")
+    if len(res.trees) != N_TREES or [(t.tree_id, t.n_points) for t in res.trees] != \
+            [(t.tree_id, t.n_points) for t in main.trees]:
+        fail("process_plot(with_metrics=True) found other trees than the main path")
+    for t, tm in zip(res.trees, main.trees):
+        if not all(torch.equal(getattr(t.cylinders, f), getattr(tm.cylinders, f))
+                   for f in tm.cylinders._fields):
+            fail(f"tree {t.tree_id}: cylinders with metrics differ from phase 5's")
+    for i, t in enumerate(res.trees):
+        m = t.metrics
+        if m is None or set(m) != METRIC_KEYS or set(m["classes"]) != CLASSES \
+                or set(m["counts"]) != CLASSES:
+            fail(f"tree {t.tree_id}: metrics missing or without the JAX package's keys")
+        if sum(m["counts"].values()) != cp["live"][i] or not cp["disjoint"][i]:
+            fail(f"tree {t.tree_id}: class masks not disjoint or not covering the live rows")
+        if not all(v == v and abs(v) != float("inf") and v >= 0 for v in metric_values(m)):
+            fail(f"tree {t.tree_id}: an area or width is not finite and >= 0")
+    if [t.metrics for t in again.trees] != [t.metrics for t in res.trees]:
+        fail("two process_plot(with_metrics=True) calls give different metrics")
+    if cp["counts"]["band_matvec"] != cp["main_launches"] or any(
+            v for k, v in cp["counts"].items() if k != "band_matvec"):
+        fail(f"with metrics the launches {cp['counts']} differ from phase 5's "
+             f"{cp['main_launches']} band_matvec launches")
+
+
+def single_tree_path(bm, mt, sk, canopy, cp: dict, cfg) -> dict:
+    """Phase 13 (b): ``skeletonize`` and ``canopy_metrics(shift=None)`` on
+    the largest tree's contraction batch row of (a), counters set to 0 just
+    before each and read just after (the ELL path launches no kernel)."""
+    import torch
+
+    i = max(range(len(cp["live"])), key=cp["live"].__getitem__)
+    p, m = cp["batch"]["points"][i], cp["batch"]["masks"][i]
+    out = dict(tree=cp["res"].trees[i].tree_id, rows=p.shape[0], live=cp["live"][i])
+    for name, fn in (("skeletonize", lambda: sk.skeletonize(p, m, cfg, device="cuda")),
+                     ("canopy_metrics", lambda: canopy.canopy_metrics(p, m, device="cuda"))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(bm, mt)
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(res=r, s=time.perf_counter() - t, launches=launch_counts(bm, mt),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    # the same call again with its Laplacian builds, PCG solves and
+    # topology timed (each synchronised), and whether a build's in-degree
+    # overflowed the transpose ELL (Lᵀ then takes the exact scatter)
+    parts = {"laplacian": "point_cloud_laplacian", "pcg": "pcg", "topology": "extract_topology"}
+    with timing(sk, parts) as times:
+        t = time.perf_counter()
+        sk.skeletonize(p, m, cfg, device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+    sp = out["split"] = dict(
+        s=total, **{k: sum(sec for sec, _ in v) for k, v in times.items()},
+        calls={k: len(v) for k, v in times.items()},
+        t_overflow=[bool(L.t_overflow.any()) for _, L in times["laplacian"]])
+    log("single_tree", f"skeletonize again, parts synchronised: {sp['s']:.3f}s; Laplacian "
+        f"builds {sp['laplacian']:.3f}s ({sp['calls']['laplacian']}), PCG solves "
+        f"{sp['pcg']:.3f}s ({sp['calls']['pcg']}), topology {sp['topology']:.3f}s; transpose "
+        f"ELL overflowed (Lᵀ by the exact scatter) in builds {sp['t_overflow']}")
+    skel, _, cyl = out["skeletonize"]["res"]
+    met = out["canopy_metrics"]["res"]
+    log("single_tree", f"tree {out['tree']} ({out['live']} live of {out['rows']} rows): "
+        f"skeletonize {out['skeletonize']['s']:.3f}s, {int(skel.iterations)} iterations "
+        f"(max_iter {cfg.max_iter}), volume ratio {float(skel.volume_ratio):.6f}, cylinders "
+        f"{int(cyl.count())}, max_memory_allocated {out['skeletonize']['peak_gib']:.3f} GiB, "
+        f"launches {out['skeletonize']['launches']}; canopy_metrics(shift=None) "
+        f"{out['canopy_metrics']['s']:.3f}s, counts {met['counts']}, width at breast height "
+        f"{met['width_at_bh']:.4f} m, max_memory_allocated "
+        f"{out['canopy_metrics']['peak_gib']:.3f} GiB, launches "
+        f"{out['canopy_metrics']['launches']}")
+    if not 1 <= int(skel.iterations) <= cfg.max_iter:
+        fail(f"single tree: {int(skel.iterations)} iterations outside 1..{cfg.max_iter}")
+    if not bool((cyl.radius[cyl.mask] > 0).any()):
+        fail("single tree: no cylinder with a radius > 0")
+    if not all(bool(torch.isfinite(f).all()) for f in (skel.total_shift, skel.first_shift,
+                                                       skel.contracted)):
+        fail("single tree: non-finite shifts")
+    if sum(met["counts"].values()) != out["live"] or not all(
+            v == v and abs(v) != float("inf") and v >= 0 for v in metric_values(met)):
+        fail("single tree: canopy metrics do not cover the live rows or are not finite")
+    if any(v for r in ("skeletonize", "canopy_metrics") for v in out[r]["launches"].values()):
+        fail("single tree: the ELL path launched a kernel")
+    return out
+
+
+def card_equals_cpu(sk, canopy, small, growth, trees, cfg) -> dict:
+    """Phase 13 (c): ``skeletonize`` and ``canopy_metrics(shift=None)`` on
+    each tree of the two-tree reference plot (phase 4), on the card and on
+    the CPU: equal iteration counts, contracted points within 5e-3 m at the
+    99th percentile, class counts within 1 % of the live rows."""
+    import numpy as np
+    import torch
+
+    out = []
+    labels = growth.labels.cpu().numpy()
+    for t in trees:
+        p = small[labels == t.tree_id]
+        m = np.ones(len(p), bool)
+        r = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            skel, _, cyl = sk.skeletonize(p, m, cfg, device=dev)
+            met = canopy.canopy_metrics(p, m, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            r[dev] = dict(skel=skel, cyl=int(cyl.count()), met=met, s=time.perf_counter() - t0)
+        d = (r["cuda"]["skel"].contracted.cpu() - r["cpu"]["skel"].contracted).abs()
+        d99 = float(np.percentile(d.numpy(), 99))
+        its = [int(r[k]["skel"].iterations) for k in ("cuda", "cpu")]
+        counts = [r[k]["met"]["counts"] for k in ("cuda", "cpu")]
+        worst = max(abs(counts[0][k] - counts[1][k]) for k in CLASSES)
+        log("card_cpu", f"tree {t.tree_id} ({len(p)} points): iterations cuda/cpu {its}, "
+            f"contracted p99 |diff| {d99:.3e} m, cylinders {r['cuda']['cyl']}/{r['cpu']['cyl']}, "
+            f"counts {counts[0]} / {counts[1]}, width {r['cuda']['met']['width_at_bh']:.5f} / "
+            f"{r['cpu']['met']['width_at_bh']:.5f} m, clump areas total "
+            f"{[round(r[k]['met']['classes']['wood']['total'], 4) for k in ('cuda', 'cpu')]} m² "
+            f"(wood); seconds cuda {r['cuda']['s']:.2f}, cpu {r['cpu']['s']:.2f}")
+        if its[0] != its[1] or d99 > 5e-3 or worst > 0.01 * len(p):
+            fail(f"tree {t.tree_id}: the card and the CPU disagree beyond the stated tolerance")
+        out.append(dict(tree=t.tree_id, iterations=its, d99=d99, counts=counts))
+    return out
+
+
 def raycast_path(tr, tmr, rg, vm, mt, pts, cfg, seed: int) -> dict:
     """The ray-casting path on the main path's canopy; mt_raycast's counter
     is set to 0 just before the casts and read just after."""
@@ -949,8 +1205,11 @@ def main() -> None:
     sys.path.insert(0, here)
     try:
         from pyqsm_tpu_torch.config import Config, IsolationConfig, RaycastConfig
+        from pyqsm_tpu_torch.models import canopy
         from pyqsm_tpu_torch.models import isolation as ti
+        from pyqsm_tpu_torch.models import plot_pipeline as pp
         from pyqsm_tpu_torch.models import raycast as tmr
+        from pyqsm_tpu_torch.models import skeleton as sk
         from pyqsm_tpu_torch.models.plot_pipeline import process_plot
         from pyqsm_tpu_torch.ops import band_matvec as bm
         from pyqsm_tpu_torch.ops import cuda_build
@@ -1042,6 +1301,7 @@ def main() -> None:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
     launches = bm.LAUNCHES
+    main_counts = launch_counts(bm, mt)
     n_cyl = [int(t.cylinders.count()) for t in res.trees]
     finite = all(bool(torch.isfinite(t.cylinders.radius).all())
                  and bool(torch.isfinite(t.cylinders.center).all()) for t in res.trees)
@@ -1167,6 +1427,18 @@ def main() -> None:
     halo_widths = check_bf16_widths(bm, args.seed + 1, prepadded=True)
     report_widths("band_matvec_bf16 halo", halo_widths)
 
+    # 13. the canopy path: (a) process_plot(with_metrics=True) on the main
+    # path's plot, (b) the single-tree path on its largest tree's batch row,
+    # (c) the card against the CPU on the two-tree reference plot
+    torch.cuda.empty_cache()
+    cp = canopy_path(bm, mt, pp, canopy, pts, mask, Config, iso_cfg, plot_kw, res, launches)
+    check_canopy_path(cp, res)
+    single = single_tree_path(bm, mt, sk, canopy, cp, Config().skeletonize)
+    card_equals_cpu(sk, canopy, small, r_gpu.growth, r_gpu.trees, Config().skeletonize)
+    paths = {"main (phase 5)": main_counts, "canopy (13a)": cp["counts"],
+             "single-tree skeletonize (13b)": single["skeletonize"]["launches"],
+             "single-tree canopy_metrics (13b)": single["canopy_metrics"]["launches"]}
+
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]
         return dict(
@@ -1224,6 +1496,8 @@ def main() -> None:
              c128={k: halo["c128"][k] for k in ("ms", "plain_ms", "bmm_ms", "bound_ms",
                                                 "bound_by", "max_abs_err")}),
     ]
+    for k in kernels:
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     signal.alarm(0)

@@ -4,7 +4,11 @@ Mirrors the JAX package's layout (``config``, ``state``, ``ops/``,
 ``models/``) with plain functions on torch tensors. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``:
 
-- ``models.plot_pipeline.process_plot`` (isolate → contract → QSM);
+- ``models.plot_pipeline.process_plot`` (isolate → contract → QSM, with
+  per-tree canopy metrics under ``with_metrics=True``);
+- ``models.skeleton``: ``extract_skeleton`` and ``skeletonize`` (one
+  tree), ``extract_skeleton_batch``;
+- ``models.canopy.canopy_metrics`` (one tree);
 - ``models.raycast``: ``cast_scene``, ``sun_exposure``, ``sun_sweep``,
   ``raycast_to_pcd``, ``sparse_cast_with_intersections``, ``mri_slices``.
 

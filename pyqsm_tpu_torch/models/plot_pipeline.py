@@ -1,6 +1,6 @@
-"""Whole-plot pipeline: isolate → per-tree skeleton QSM (counterpart of
-``pyqsm_tpu/models/plot_pipeline.py``; canopy metrics are not ported
-yet).
+"""Whole-plot pipeline: isolate → per-tree skeleton QSM, optionally with
+per-tree canopy metrics (counterpart of
+``pyqsm_tpu/models/plot_pipeline.py``).
 
 The plot stays on the device; every kept tree is gathered into one
 ``[T, cap]`` buffer, its resolution rung found by a batched binary search
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from pyqsm_tpu_torch.config import Config, IsolationConfig
 from pyqsm_tpu_torch.device import DEFAULT_DEVICE, as_tensor, resolve_device
+from pyqsm_tpu_torch.models.canopy import canopy_metrics
 from pyqsm_tpu_torch.models.isolation import GrowthResult, build_trees
 from pyqsm_tpu_torch.models.skeleton import (extract_skeleton_batch, extract_topology,
                                              skeleton_to_qsm)
@@ -31,7 +32,7 @@ class TreeResult(NamedTuple):
     tree_id: int
     n_points: int
     cylinders: Cylinders
-    metrics: dict | None = None  # canopy metrics (``with_metrics``, not ported yet)
+    metrics: dict | None = None  # canopy metrics (``with_metrics``)
 
 
 class PlotResult(NamedTuple):
@@ -55,19 +56,17 @@ def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConf
 
     ``max_trees``: keep at most this many trees, the largest first (before
     the ``min_tree_points`` cut, as in the JAX package).
-    ``with_metrics``: canopy metrics per tree — not ported yet, so True
-    raises ``NotImplementedError`` rather than return trees without them.
+    ``with_metrics``: each tree's ``canopy_metrics`` on its contraction
+    batch row, from the contraction's own first-iteration shift, inside
+    the topology stage (so its time lands in ``topology_s``).
     ``progress``: optional ``callable(stage, stage_s)`` fired after each
     stage (isolation, ladder, contraction, topology); an exception it
     raises is swallowed — an observer must not end the run.
     ``mesh``: a ``parallel.mesh.Mesh`` — every rank calls with the same
     inputs; the growth runs sharded over the ranks, each rank contracts
     its block of trees, and every rank returns the full result. ``device``
-    must name the rank's mesh device."""
-    if with_metrics:
-        raise NotImplementedError(
-            "process_plot(with_metrics=True): canopy metrics are not ported yet "
-            "(ROADMAP.md §1, the canopy-metrics item)")
+    must name the rank's mesh device; with ``with_metrics`` every rank
+    computes every tree's metrics."""
     dev = resolve_device(device, mesh)
     points = as_tensor(points, dev, torch.float32)
     mask = as_tensor(mask, dev, torch.bool)
@@ -146,6 +145,10 @@ def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConf
     for i, (tree_id, n_tree) in enumerate(zip(kept_ids, kept_counts)):
         topo = extract_topology(skels.contracted[i], batch_m[i], skels.total_shift[i],
                                 cfg.skeletonize.graph_k_n)
-        trees.append(TreeResult(tree_id, n_tree, skeleton_to_qsm(topo)))
+        metrics = None
+        if with_metrics:
+            metrics = canopy_metrics(batch_p[i], batch_m[i], shift=skels.first_shift[i],
+                                     device=dev)
+        trees.append(TreeResult(tree_id, n_tree, skeleton_to_qsm(topo), metrics))
     tick("topology", t0)
     return PlotResult(growth, trees, timings)

@@ -1,12 +1,15 @@
 """Laplacian-contraction skeletonization → topology → QSM (counterpart of
-``pyqsm_tpu/models/skeleton.py``: ``extract_skeleton_batch`` with its
-two-level path, ``extract_topology``, ``skeleton_to_qsm``).
+``pyqsm_tpu/models/skeleton.py``: the single-tree ``extract_skeleton`` and
+``skeletonize``, ``extract_skeleton_batch`` with its two-level path,
+``extract_topology``, ``skeleton_to_qsm``).
 
 The batch of trees is a leading axis ``[T, P, ...]``; the outer contraction
 loop is host-stepped as in the JAX package (one iteration per step, with
 the per-tree termination and stall tests on the host), and between steps
 ``_banded_guard`` rebuilds any Laplacian whose banded spill overflowed
-before it reaches a solve.
+before it reaches a solve. The single-tree contraction is the same step on
+a batch of one tree, with the exact ELL Laplacian rebuilt every iteration
+(no Morton order, no band).
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ _STALL_FRAC = 0.05
 
 
 class SkeletonResult(NamedTuple):
+    """Batch results carry the leading trees axis; ``extract_skeleton``'s
+    have none ([P, 3] and scalars), as in the JAX package."""
+
     contracted: torch.Tensor  # [T, P, 3]
     total_shift: torch.Tensor  # [T, P, 3]
     first_shift: torch.Tensor  # [T, P, 3] single-iteration shift
@@ -108,6 +114,63 @@ def _contract_step_batch(pts, masks, L, wl, wh, shift, first, ratio, it, m0_mean
     ratio_out = torch.where(active, new_ratio, ratio)
     it_out = it + active.to(torch.int32)
     return pts_out, shift, first, L_out, wl_out, wh_out, ratio_out, it_out
+
+
+def _contract(points, mask, cfg: SkeletonizeConfig, termination, contraction, cg_iters,
+              cg_iters_first, wl_scale=None, cg_tol=3e-4) -> SkeletonResult:
+    """The single-tree contraction loop: ``_contract_step_batch`` on a
+    batch of one tree with the ELL Laplacian. The first solve has its own
+    budget; then the loop goes on while the mass ratio is above
+    ``termination``, fewer than ``cfg.max_iter`` iterations ran and the
+    last one cut the ratio by at least ``_STALL_FRAC`` (so ``max_iter=1``
+    runs exactly one). One host read a step."""
+    pts, msk = points[None], mask[None]
+    center, axes, half, L, m0, m0_mean, wl, wh = _contract_init_batch(
+        pts, msk, cfg.n_neighbors, cfg.moll, contraction, cfg.init_attraction)
+    if wl_scale is not None:
+        wl = wl * wl_scale[None]
+    ratio = torch.ones(1, dtype=pts.dtype, device=pts.device)
+    it = torch.zeros(1, dtype=torch.int32, device=pts.device)
+    active = torch.ones(1, dtype=torch.bool, device=pts.device)
+    shift = first = torch.zeros_like(pts)
+    budget = 3 * cg_iters if cg_iters_first is None else cg_iters_first
+    while True:
+        prev = ratio
+        pts, shift, first, L, wl, wh, ratio, it = _contract_step_batch(
+            pts, msk, L, wl, wh, shift, first, ratio, it, m0_mean, m0, center, axes, half,
+            n_neighbors=cfg.n_neighbors, moll=cfg.moll, contraction_factor=contraction,
+            max_contraction=cfg.max_contraction, max_attraction=cfg.max_attraction,
+            termination_ratio=termination, cg_iters=budget, cg_tol=cg_tol, active=active)
+        budget = cg_iters
+        go = (ratio > termination) & (it < cfg.max_iter) & (prev - ratio >= _STALL_FRAC * prev)
+        if not bool(go):
+            break
+    return SkeletonResult(pts[0], shift[0], first[0], it[0], ratio[0])
+
+
+def extract_skeleton(points, mask, cfg: SkeletonizeConfig | None = None,
+                     amplify_auto: bool = True, cg_iters: int = 80, trunk_mask=None,
+                     cg_iters_first: int | None = None,
+                     device: str | torch.device = DEFAULT_DEVICE) -> SkeletonResult:
+    """Contract one cloud [N, 3] (mask [N]) onto its skeleton, on ``device``.
+
+    ``amplify_auto``: under ``"auto"`` amplification pick the tier from the
+    live count. ``trunk_mask``: semantic weighting — trunk points get their
+    Laplacian rows scaled by ``cfg.semantic_weight``. PCG budgets:
+    ``cg_iters`` a solve, the first ``cg_iters_first`` (default
+    3·``cg_iters``)."""
+    dev = resolve_device(device)
+    points = as_tensor(points, dev, torch.float32)
+    mask = as_tensor(mask, dev, torch.bool)
+    cfg = cfg or SkeletonizeConfig()
+    termination, contraction = cfg.termination_ratio, cfg.init_contraction
+    if amplify_auto and cfg.step_wise_contraction_amplification == "auto":
+        termination, contraction = set_amplification(int(mask.sum()), termination)
+    wl_scale = None
+    if trunk_mask is not None:
+        wl_scale = torch.where(as_tensor(trunk_mask, dev, torch.bool), cfg.semantic_weight, 1.0)
+    return _contract(points, mask, cfg, termination, contraction, cg_iters, cg_iters_first,
+                     wl_scale)
 
 
 def _morton_perm_batch(points, masks):
@@ -433,3 +496,15 @@ def skeleton_to_qsm(topo: TopologyResult) -> Cylinders:
                      radius=torch.where(m, radius, 0.0),
                      branch_order=torch.zeros(ncyl, dtype=torch.int32, device=dev),
                      parent=torch.full((ncyl,), -1, dtype=torch.int32, device=dev), mask=m)
+
+
+def skeletonize(points, mask, cfg: SkeletonizeConfig | None = None,
+                device: str | torch.device = DEFAULT_DEVICE):
+    """One tree through contract → topology → QSM, on ``device``:
+    ``(SkeletonResult, TopologyResult, Cylinders)``."""
+    dev = resolve_device(device)
+    mask = as_tensor(mask, dev, torch.bool)
+    cfg = cfg or SkeletonizeConfig()
+    skel = extract_skeleton(points, mask, cfg, device=dev)
+    topo = extract_topology(skel.contracted, mask, skel.total_shift, cfg.graph_k_n)
+    return skel, topo, skeleton_to_qsm(topo)

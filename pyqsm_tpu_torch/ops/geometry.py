@@ -9,17 +9,23 @@ import torch
 from pyqsm_tpu_torch.ops.linalg3 import sym_eig3
 
 
-def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
+def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float,
+                      constant_q: bool = False) -> torch.Tensor:
     """Linear-interpolated percentile over live entries — the float32
     arithmetic of ``jnp.nanpercentile`` (weights ``1 - h`` and ``h`` on the
     two neighbouring order statistics), so thresholds agree with the JAX
-    package to the bit."""
+    package to the bit.
+
+    XLA turns q / 100 into q · f32(0.01) where q reaches the computation at
+    run time, but folds it into one correctly rounded f32(q / 100) where q
+    is a constant of the trace (a literal, or a default argument of the
+    jitted function): ``constant_q`` says which the JAX package's call
+    site is (60 · f32(0.01) and f32(60 / 100) differ in the last bit)."""
     v = torch.where(mask, values, float("nan"))
     s, _ = torch.sort(v)  # NaN sorts last
     cnt = mask.sum().to(torch.float32)
-    # XLA folds q / 100 into q · f32(0.01)
-    qq = torch.tensor(q, dtype=torch.float32, device=values.device) * torch.tensor(
-        0.01, dtype=torch.float32, device=values.device)
+    q32 = torch.tensor(q, dtype=torch.float32)
+    qq = (q32 / 100.0 if constant_q else q32 * torch.tensor(0.01)).to(values.device)
     pos = qq * (cnt - 1.0)
     low = torch.floor(pos)
     high = torch.ceil(pos)

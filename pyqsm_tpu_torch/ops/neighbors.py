@@ -35,6 +35,13 @@ def _sq3(x: torch.Tensor) -> torch.Tensor:
     return (x64[..., 2] * x64[..., 2] + s).float()
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as XLA's: through float64
+    (torch's vectorised CPU float32 sqrt misrounds about 0.7 % of inputs
+    by one ulp)."""
+    return torch.sqrt(x.double()).float()
+
+
 def _dist2(q_sq: torch.Tensor, p_sq: torch.Tensor, qf: torch.Tensor,
            pf: torch.Tensor) -> torch.Tensor:
     """[B, QT, N] squared distances ``(|q|² + |p|²) − 2·q·pᵀ`` as one

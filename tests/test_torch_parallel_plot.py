@@ -2,7 +2,7 @@
 the JAX package's single-device ``process_plot``, on the three-tree plot of
 tests/test_plot_pipeline.py:68 (sharded growth, then each rank contracting
 its own block of trees: 3 trees over 4 ranks, one rank holding only an
-empty padding tree).
+empty padding tree), with every tree's canopy metrics.
 
 The ranks are spawned processes that import this module by name: JAX is
 imported only inside the functions the parent runs."""
@@ -42,12 +42,13 @@ def _three_trees():
 
 
 def _plot_ranks(pts, mesh=None):
-    """Rank body: ``process_plot(mesh=)`` on the whole plot."""
+    """Rank body: ``process_plot(mesh=, with_metrics=True)`` on the whole
+    plot."""
     from pyqsm_tpu_torch.config import IsolationConfig
     from pyqsm_tpu_torch.models.plot_pipeline import process_plot
 
     return process_plot(pts, np.ones(len(pts), bool), iso_cfg=IsolationConfig(**ISO), mesh=mesh,
-                        device=mesh.device, **KW)
+                        with_metrics=True, device=mesh.device, **KW)
 
 
 @pytest.fixture(scope="module")
@@ -65,8 +66,8 @@ def runs():
         ranks = pool.submit(pm.launch, _plot_ranks, WORLD, "gloo", args=(pts,), device="cpu")
         ref = j_process_plot(jnp.asarray(pts), jnp.ones(len(pts), bool), iso_cfg=JIso(**ISO),
                              **KW)
-        single = t_process_plot(pts, np.ones(len(pts), bool), iso_cfg=TIso(**ISO), device="cpu",
-                                **KW)
+        single = t_process_plot(pts, np.ones(len(pts), bool), iso_cfg=TIso(**ISO),
+                                with_metrics=True, device="cpu", **KW)
         return ranks.result(), ref, single
 
 
@@ -107,3 +108,16 @@ def test_process_plot_sharded_equals_the_ports_single_device_run(runs):
             assert (tb.tree_id, tb.n_points) == (ts.tree_id, ts.n_points)
             for f in ts.cylinders._fields:
                 assert torch.equal(getattr(tb.cylinders, f), getattr(ts.cylinders, f)), f
+
+
+def test_process_plot_sharded_metrics_equal_the_ports_single_device_run(runs):
+    """``with_metrics=True`` under a mesh: every rank computes every tree's
+    canopy metrics from the gathered contraction, equal to the port's
+    single-device run's (the same draws: a CPU generator seeded 0 per
+    tree)."""
+    ranks, _, single = runs
+    for b in ranks:
+        assert [t.metrics for t in b.trees] == [t.metrics for t in single.trees]
+    m = single.trees[0].metrics
+    assert set(m) == {"classes", "slice_areas", "width_at_bh", "counts"}
+    assert m["width_at_bh"] > 0 and len(m["slice_areas"]) == 5

@@ -1,8 +1,9 @@
 """The PyTorch port's ``process_plot`` against the JAX package on the
 two-tree case of tests/test_plot_pipeline.py: the same tree ids and
 per-tree point counts (isolation is bit-equal), cylinders within the
-tolerance stated below, and the reference's ``max_trees``, ``progress``
-and ``TreeResult`` contracts."""
+tolerance stated below, per-tree canopy metrics (``with_metrics``), and
+the reference's ``max_trees``, ``progress`` and ``TreeResult``
+contracts."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -93,15 +94,57 @@ def test_max_trees_and_a_raising_progress_callback(jax_run):
 
 def test_tree_result_has_the_reference_fields():
     """Code that unpacks the reference's 4-field ``TreeResult`` works on the
-    port's; the metrics stay None until canopy metrics are ported."""
+    port's; the metrics default to None (``with_metrics=False``)."""
     assert TTreeResult._fields == JTreeResult._fields
     tree_id, n_points, cylinders, metrics = TTreeResult(3, 10, None)
     assert (tree_id, n_points, metrics) == (3, 10, None)
 
 
-def test_with_metrics_raises_until_canopy_metrics_are_ported():
-    """``with_metrics=True`` raises instead of returning trees without
-    their metrics."""
-    with pytest.raises(NotImplementedError, match="canopy"):
-        t_process_plot(np.zeros((4, 3), np.float32), np.ones(4, bool), with_metrics=True,
-                       device="cpu")
+def test_process_plot_with_metrics_matches_jax(monkeypatch):
+    """``with_metrics=True`` on the two-tree case, the JAX package's k-means
+    draws replayed (``JaxDraws``, tests/test_torch_cluster.py): the same
+    tree ids, cylinders within the tolerance above, and each tree's
+    metrics within the end-to-end canopy tolerance
+    (tests/test_torch_canopy.py): class counts within 1 % of the tree's
+    live batch rows (disjoint, summing to them), areas and width within
+    5 %. The metrics come after the contraction: the cylinders equal a run
+    without them bit for bit."""
+    from test_torch_cluster import JaxDraws
+
+    from pyqsm_tpu_torch.ops import cluster as tcl
+
+    monkeypatch.setattr(tcl, "first_center", JaxDraws())
+    pts = _two_trees(np.random.default_rng(0))
+    a = j_process_plot(jnp.asarray(pts), jnp.ones(len(pts), bool), iso_cfg=JIso(**ISO),
+                       with_metrics=True, **KW)
+    batch = {}
+
+    def recording(points, masks, cfg, **kw):  # observes, then calls through
+        batch.update(masks=masks)
+        return extract(points, masks, cfg, **kw)
+
+    from pyqsm_tpu_torch.models import plot_pipeline as tpp
+
+    extract = tpp.extract_skeleton_batch
+    monkeypatch.setattr(tpp, "extract_skeleton_batch", recording)
+    b = t_process_plot(pts, np.ones(len(pts), bool), iso_cfg=TIso(**ISO), with_metrics=True,
+                       device="cpu", **KW)
+    plain = t_process_plot(pts, np.ones(len(pts), bool), iso_cfg=TIso(**ISO), device="cpu", **KW)
+    assert [(t.tree_id, t.n_points) for t in b.trees] == [(t.tree_id, t.n_points) for t in a.trees]
+    assert len(b.trees) == 2
+    for i, (tj, tt, tp) in enumerate(zip(a.trees, b.trees, plain.trees)):
+        for f in tt.cylinders._fields:
+            assert torch.equal(getattr(tt.cylinders, f), getattr(tp.cylinders, f)), f
+        mj, mt = np.asarray(tj.cylinders.mask), tt.cylinders.mask.numpy()
+        assert abs(int(mt.sum()) - int(mj.sum())) <= 1 and mt.sum() >= 1
+        rj, rt = np.asarray(tj.cylinders.radius)[mj], tt.cylinders.radius.numpy()[mt]
+        np.testing.assert_allclose(np.median(rt), np.median(rj), rtol=0.1)
+        ma, mb = tj.metrics, tt.metrics
+        assert set(mb) == set(ma) and set(mb["classes"]) == set(ma["classes"])
+        n_live = int(batch["masks"][i].sum())
+        assert sum(mb["counts"].values()) == n_live
+        assert all(abs(mb["counts"][k] - ma["counts"][k]) <= 0.01 * n_live for k in ma["counts"])
+        for name, cj in ma["classes"].items():
+            np.testing.assert_allclose(mb["classes"][name]["total"], cj["total"], rtol=0.05)
+        np.testing.assert_allclose(mb["slice_areas"], ma["slice_areas"], rtol=0.05)
+        np.testing.assert_allclose(mb["width_at_bh"], ma["width_at_bh"], rtol=0.05)

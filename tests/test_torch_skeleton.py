@@ -1,15 +1,16 @@
 """Contraction, topology and QSM of the PyTorch port against the JAX
 package on the CPU: one contraction step on a carried-across Laplacian,
 the batched single-level and two-level contractions with default and
-non-default PCG budgets, the banded guard's overflow rescues, and
-topology/QSM on identical contracted input."""
+non-default PCG budgets, the banded guard's overflow rescues,
+topology/QSM on identical contracted input, and the single-tree
+``extract_skeleton`` (plain and semantic-weighted) and ``skeletonize``."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from conftest import synthetic_tree
+from conftest import synthetic_branch, synthetic_tree
 from pyqsm_tpu.models import skeleton as jsk
 from pyqsm_tpu_torch.convert import state_from_numpy
 from pyqsm_tpu_torch.models import skeleton as tsk
@@ -210,3 +211,58 @@ def test_banded_guard_rescues_overflow_as_jax(rng, cloud):
     else:
         assert L_t.b_w is None and L_j.b_w is None
         np.testing.assert_array_equal(L_t.t_idx.numpy(), np.asarray(L_j.t_idx))
+
+
+def _assert_single_tree_close(a, b):
+    """Single-tree contraction as the batch path is held: same iteration
+    count, volume ratio within 5 %, positions and shifts within 5e-3 m at
+    the 99th percentile and 5e-4 m at the median."""
+    assert b.contracted.dim() == 2 and b.iterations.dim() == 0
+    assert int(b.iterations) == int(a.iterations)
+    np.testing.assert_allclose(float(b.volume_ratio), float(a.volume_ratio), rtol=0.05)
+    for f in ("contracted", "total_shift", "first_shift"):
+        d = np.abs(getattr(b, f).numpy() - np.asarray(getattr(a, f)))
+        assert np.percentile(d, 99) < 5e-3, f
+        assert np.median(d) < 5e-4, f
+
+
+@pytest.mark.parametrize("trunk", [False, True], ids=["plain", "trunk_mask"])
+def test_extract_skeleton_matches_jax(trunk):
+    """The single-tree ``extract_skeleton`` (ELL Laplacian rebuilt every
+    iteration) on the oracles' branches: 2000 points, 10 iterations at
+    most; with ``trunk_mask``, 1500 points, 3 iterations, semantic weight
+    10 on the lower half."""
+    from pyqsm_tpu.config import SkeletonizeConfig as JCfg
+    from pyqsm_tpu_torch.config import SkeletonizeConfig as TCfg
+
+    if trunk:
+        pts = synthetic_branch(1500, radius=0.3, length=4.0, seed=8)
+        kw, tm = dict(max_iter=3, semantic_weight=10.0), pts[:, 2] < 2.0
+    else:
+        pts = synthetic_branch(2000, radius=0.3, length=4.0, seed=1)
+        kw, tm = dict(max_iter=10), None
+    m = np.ones(len(pts), bool)
+    a = jsk.extract_skeleton(jnp.asarray(pts), jnp.asarray(m), JCfg(**kw),
+                             trunk_mask=None if tm is None else jnp.asarray(tm))
+    b = tsk.extract_skeleton(pts, m, TCfg(**kw), trunk_mask=tm, device="cpu")
+    _assert_single_tree_close(a, b)
+    if trunk:  # the weighting changes the contraction
+        plain = tsk.extract_skeleton(pts, m, TCfg(**kw), device="cpu")
+        assert not torch.allclose(plain.contracted, b.contracted)
+
+
+def test_skeletonize_matches_jax():
+    """``skeletonize`` on the oracle tree (trunk and two branches, 10
+    iterations at most): the contraction as above; the cylinders from it
+    as the plot parity test holds them (count ±1, all radii positive)."""
+    from pyqsm_tpu.config import SkeletonizeConfig as JCfg
+    from pyqsm_tpu_torch.config import SkeletonizeConfig as TCfg
+
+    pts = synthetic_tree()
+    m = np.ones(len(pts), bool)
+    sj, _, cj = jsk.skeletonize(jnp.asarray(pts), jnp.asarray(m), JCfg(max_iter=10))
+    st, topo, ct = tsk.skeletonize(pts, m, TCfg(max_iter=10), device="cpu")
+    _assert_single_tree_close(sj, st)
+    assert abs(int(ct.mask.sum()) - int(jnp.sum(cj.mask))) <= 1
+    assert int(ct.mask.sum()) >= 2 and bool((ct.radius[ct.mask] > 0).all())
+    assert bool((topo.topology.point_to_vertex >= 0).all())

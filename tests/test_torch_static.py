@@ -36,7 +36,8 @@ def test_port_imports_no_jax(path):
 REQUIRED = ["ops/band_matvec.py", "ops/cuda_build.py", "ops/mt_raycast.py", "ops/mesh.py",
             "ops/raytrace.py", "ops/voxelmesh.py", "ops/raygrid.py", "models/raycast.py",
             "convert.py", "ops/segment.py", "state.py", "parallel/__init__.py",
-            "parallel/mesh.py", "parallel/growth.py"]
+            "parallel/mesh.py", "parallel/growth.py", "ops/area.py", "ops/color.py",
+            "ops/cluster.py", "models/canopy.py"]
 
 
 def test_import_scan_covers_every_port_module():
@@ -56,17 +57,18 @@ def test_every_kernel_source_is_registered_for_the_build():
 
 def _entry_points():
     from pyqsm_tpu_torch import convert, state
-    from pyqsm_tpu_torch.models import isolation, plot_pipeline, raycast, skeleton
+    from pyqsm_tpu_torch.models import canopy, isolation, plot_pipeline, raycast, skeleton
     from pyqsm_tpu_torch.parallel import mesh
 
     return [plot_pipeline.process_plot, isolation.build_trees, skeleton.extract_skeleton_batch,
             convert.state_from_numpy, convert.mesh_from_numpy, raycast.cast_scene,
             raycast.sun_exposure, raycast.sun_sweep, raycast.raycast_to_pcd,
             raycast.sparse_cast_with_intersections, raycast.mri_slices,
-            mesh.make_mesh, mesh.tree_points_mesh, mesh.launch, state.PointCloud.create]
+            mesh.make_mesh, mesh.tree_points_mesh, mesh.launch, state.PointCloud.create,
+            skeleton.extract_skeleton, skeleton.skeletonize, canopy.canopy_metrics]
 
 
-@pytest.mark.parametrize("fn", range(15))
+@pytest.mark.parametrize("fn", range(18))
 def test_entry_points_default_to_cuda(fn):
     f = _entry_points()[fn]
     assert inspect.signature(f).parameters["device"].default == "cuda", f.__qualname__
@@ -83,6 +85,12 @@ def test_cuda_without_card_raises():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         process_plot(torch.zeros(4, 3), torch.ones(4, dtype=torch.bool))
+    from pyqsm_tpu_torch.models.canopy import canopy_metrics
+    from pyqsm_tpu_torch.models.skeleton import skeletonize
+
+    for fn in (canopy_metrics, skeletonize):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(torch.zeros(4, 3), torch.ones(4, dtype=torch.bool))
     from pyqsm_tpu_torch.models.raycast import cast_scene
     from pyqsm_tpu_torch.ops.mesh import sphere_mesh
 
