@@ -82,7 +82,29 @@ Phases, each printing lines with the elapsed seconds:
    seconds, iterations and peak memory; (c) ``skeletonize`` and
    ``canopy_metrics`` on phase 4's two trees on the card and on the CPU —
    equal iteration counts, contracted points within 5e-3 m at the 99th
-   percentile, class counts within 1 % of the live rows.
+   percentile, class counts within 1 % of the live rows;
+14. raycast grid path at the bench's scene (bench.py:364-470): phase 7's
+   raw canopy mesh decimated to 400 000 triangles; (a) ``build_image_grid``
+   + ``image_cast`` at 1280×950 (fov 60°, eye center + (0, -30, 18), up
+   +z) on the kept and on the raw mesh, build, first and steady seconds and
+   peak memory, the kept mesh's cast held against ``mt_raycast`` on the
+   same rays (``image_rays``): the same rays hit, counts equal, t within
+   1e-4 relative, tri differing on fewer than 1 % of hits; (b)
+   ``cast_scene`` with the default config, which must take the image grid
+   and equal a brute exposure of its rays within 1e-4; (c) an eye inside
+   the canopy, whose residual pass must launch ``mt_raycast``, held
+   against the brute kernel as in (a); (d) ``cell_cast_parallel`` along
+   (0.3, 0.2, -0.93), 16 rays a cell side, timed, with the rays of 4096
+   sampled cells held against the brute kernel; (e)
+   ``build_grid3d_two_level`` timed, ``two_level_cast`` on the bench's
+   10⁶-ray bundle (first and steady), its first 65 536 rays held against
+   the brute kernel, and with ``count_all=True`` their counts equal to the
+   brute's; (f) ``cast_rays(auto)``, ``occupancy`` (against the brute
+   parity), ``sun_exposure`` at elevations 30/60/90 with both backends and
+   ``mri_slices`` 8×64² on the kept mesh. Each drive of the path sets the
+   counters to 0 just before and reads them just after. Then the image
+   cast, the cell cast and ``grid_cast`` on a small scene on the card and
+   on the CPU: tri and counts equal, t within 1e-6 relative.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -115,6 +137,7 @@ N_TREES = 8  # the bench's plot layout
 MT_OPS_PER_PAIR = 46  # float32 ops per ray-triangle pair in csrc/mt_raycast.cu
 BUDGET_S = 1000  # wall-clock limit of the whole script, build included
 SHARDED_RANKS = 4  # ranks of the sharded path (phase 11)
+DDA_RAY_TILE = 1 << 20  # rays a tile of phase 14's 10⁶-ray DDA cast: the whole bundle
 
 
 def log(phase: str, msg: str) -> None:
@@ -1104,7 +1127,8 @@ def raycast_path(tr, tmr, rg, vm, mt, pts, cfg, seed: int) -> dict:
     log("raycast", f"canopy {canopy.shape[0]} points -> raw mesh {n_raw} triangles -> "
         f"decimated {n_tri} triangles, {mesh.vertices.shape[0]} vertices in {mesh_s:.3f}s; "
         f"rebuild on the card identical: {rebuild_equal}")
-    out = dict(mesh=mesh, n_raw=n_raw, n_tri=n_tri, mesh_s=mesh_s, rebuild_equal=rebuild_equal)
+    out = dict(mesh=mesh, raw=raw, n_raw=n_raw, n_tri=n_tri, mesh_s=mesh_s,
+               rebuild_equal=rebuild_equal)
     if not 1000 <= n_tri < 2048:
         fail(f"decimated mesh has {n_tri} triangles, expected 1000-2047")
 
@@ -1183,6 +1207,343 @@ def raycast_path(tr, tmr, rg, vm, mt, pts, cfg, seed: int) -> dict:
     return out
 
 
+def f64_hits(mt, o, d, mesh, chunk: int = 16):
+    """Closest t and crossing count of rays against every triangle of the
+    mesh in float64 arithmetic (Möller–Trumbore as the casters compute
+    it): the arbiter where a float32 cast and the brute kernel disagree."""
+    import torch
+
+    soa = mt.triangle_soa(mesh.vertices.double(), mesh.triangles)
+    ts, cs = [], []
+    for r0 in range(0, o.shape[0], chunk):
+        ov = tuple(o[r0:r0 + chunk, a:a + 1].double() for a in range(3))
+        dv = tuple(d[r0:r0 + chunk, a:a + 1].double() for a in range(3))
+        t, _, _ = mt.mt_components(ov, dv, (soa[0], soa[1], soa[2]), (soa[3], soa[4], soa[5]),
+                                   (soa[6], soa[7], soa[8]), soa[9] > 0)
+        ts.append(t.amin(dim=1))
+        cs.append(torch.isfinite(t).sum(dim=1))
+    return torch.cat(ts), torch.cat(cs)
+
+
+def against_brute(mt, h, b, o, d, mesh, label: str, counts: bool = True) -> dict:
+    """A grid cast ``h`` held against the brute kernel's ``b`` on the same
+    rays (o, d), with the JAX package's oracle tolerances
+    (tests/test_raygrid.py, tests/test_grid3d.py): the same rays hit, t
+    within 1e-4 relative, the triangle ids differing on fewer than 1 % of
+    hits (ties at equal t) and, where every crossing is counted, equal
+    counts. A ray where they disagree is cast again in float64 against
+    every triangle: the disagreement passes only when the grid cast agrees
+    with the float64 cast (the same rays hit, t within 1e-4, equal counts)
+    — float32 Möller–Trumbore from afar can find a crossing on a sliver
+    triangle that its projected bounds exclude, which the grid never
+    tests. More than 1000 such rays fail."""
+    import torch
+
+    fin = torch.isfinite(b.t)
+    n_hit = int(fin.sum())
+    rel = ((h.t - b.t).abs() / b.t.abs().clamp(min=1e-30)).nan_to_num(0.0)
+    bad = (torch.isfinite(h.t) != fin) | (fin & (rel > 1e-4))
+    if counts:
+        bad |= h.count != b.count
+    rows = torch.nonzero(bad)[:, 0]
+    arbitrated = confirmed = 0
+    if 0 < rows.shape[0] <= 1000:
+        t64, c64 = f64_hits(mt, o[rows], d[rows], mesh)
+        ht = h.t[rows].double()
+        agree = (torch.isfinite(ht) == torch.isfinite(t64)) & (
+            ~torch.isfinite(t64) | ((ht - t64).abs() <= 1e-4 * t64.abs()))
+        if counts:
+            agree &= h.count[rows] == c64
+        arbitrated, confirmed = rows.shape[0], int(agree.sum())
+    ok_rows = rows.shape[0] == 0 or (arbitrated and confirmed == arbitrated)
+    good = ~bad & fin
+    t_rel = float(rel[good].max()) if bool(good.any()) else 0.0
+    tri_diff = int(((h.tri != b.tri) & good).sum()) / max(n_hit, 1)
+    ok = ok_rows and tri_diff < 0.01
+    log("raycast_grid", f"{label} against the brute kernel on the same {b.t.shape[0]} rays: "
+        f"{n_hit} hit; {rows.shape[0]} rays disagree (hit mask, t beyond 1e-4 relative"
+        f"{', count' if counts else ''}), float64 sides with the grid cast on {confirmed} of "
+        f"{arbitrated}; elsewhere t max rel {t_rel:.3e}, tri differ on {tri_diff:.6f} of hits"
+        f"{', counts equal' if counts else ''}")
+    if not ok:
+        fail(f"{label}: the grid cast disagrees with the brute kernel")
+    return dict(n_hit=n_hit, disagree=int(rows.shape[0]), confirmed=confirmed, t_rel=t_rel,
+                tri_diff=tri_diff)
+
+
+def raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray: dict, cfg) -> dict:
+    """Phase 14: the ray-casting path at the bench's scene (bench.py:364-470)
+    through the image grid, the cell cast and the 3D grid. Each drive of the
+    path sets the launch counters to 0 just before and reads them just
+    after; the brute oracles run outside the drives."""
+    import numpy as np
+    import torch
+
+    out = dict(counts={k: 0 for k in launch_counts(bm, mt)}, s={})
+
+    def drive(name, fn, rays=None):
+        torch.cuda.synchronize()
+        zero_launches(bm, mt)
+        syncs = g3.SYNCS
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        n = launch_counts(bm, mt)
+        for k, v in n.items():
+            out["counts"][k] += v
+        out["s"][name] = sec
+        rate = f", {rays / sec / 1e6:.3f} Mrays/s" if rays else ""
+        log("raycast_grid", f"{name}: {sec:.4f}s{rate}; launches {n}; DDA host reads "
+            f"{g3.SYNCS - syncs}")
+        return r
+
+    def brute(o, d, mesh):
+        return tr.cast_rays(o.contiguous(), d.contiguous(), mesh.vertices, mesh.triangles,
+                            backend="kernel")
+
+    # the bench's scene: the canopy mesh of phase 7 before its decimation
+    raw = ray["raw"]
+    t0 = time.perf_counter()
+    mesh = vm.simplify_mesh(raw, target_triangles=400_000)
+    torch.cuda.synchronize()
+    n_raw, n_tri = raw.n_triangles(), mesh.n_triangles()
+    log("raycast_grid", f"bench scene: raw {n_raw} triangles -> simplify_mesh(400 000) kept "
+        f"{n_tri} triangles, {mesh.vertices.shape[0]} vertices in {time.perf_counter() - t0:.3f}s")
+    if n_tri < tr.GRID_TRIANGLES:
+        fail(f"the bench scene kept {n_tri} triangles, fewer than {tr.GRID_TRIANGLES}")
+    out.update(n_raw=n_raw, n_tri=n_tri)
+    center = mesh.vertices.mean(dim=0)
+    zup = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+
+    # (a) the pinhole cast at 1280x950, fov 60, eye = center + (0, -30, 18)
+    W, H = 1280, 950
+    eye = center + torch.tensor([0.0, -30.0, 18.0], device="cuda")
+    for label, m in (("kept", mesh), ("raw", raw)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        grid = rg.build_image_grid(m.vertices, m.triangles, eye, center, zup, 60.0, W, H)
+        build_s = time.perf_counter() - t
+        first = drive(f"image_cast {label} {W}x{H} first", lambda: rg.image_cast(grid), W * H)
+        h = drive(f"image_cast {label} {W}x{H} steady", lambda: rg.image_cast(grid), W * H)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        caps = [c for c, _, _ in grid.buckets]
+        log("raycast_grid", f"image grid {label}: build {build_s:.3f}s (host), tile cap "
+            f"{grid.tri_of_slot.shape[1]}, buckets {caps}, residual "
+            f"{int((grid.residual >= 0).sum())}; max_memory_allocated {peak:.3f} GiB; the two "
+            f"casts equal bit for bit {all(torch.equal(a, b) for a, b in zip(first, h))}")
+        out[f"image_{label}"] = dict(build_s=build_s, peak_gib=peak, caps=caps,
+                                     first_s=out["s"][f"image_cast {label} {W}x{H} first"],
+                                     steady_s=out["s"][f"image_cast {label} {W}x{H} steady"])
+        if label == "kept":
+            o, d = rg.image_rays(grid)
+            out["image_check"] = against_brute(mt, h, brute(o, d, m), o, d, m,
+                                               f"image_cast {label}")
+        del grid, first, h
+
+    # (b) cast_scene with the default config: it must take the image route
+    built = []
+    real_build = tmr.build_image_grid
+    tmr.build_image_grid = lambda *a, **kw: built.append(real_build(*a, **kw)) or built[-1]
+    try:
+        scene = drive(f"cast_scene {cfg.width_px}x{cfg.height_px}",
+                      lambda: tmr.cast_scene(mesh, cfg=cfg, device="cuda"),
+                      cfg.width_px * cfg.height_px)
+    finally:
+        tmr.build_image_grid = real_build
+    if len(built) != 1:
+        fail("cast_scene on the bench scene did not take the image grid")
+    o, d = rg.image_rays(built[0])
+    hb = brute(o, d, mesh)
+    against_brute(mt, scene.hits, hb, o, d, mesh, "cast_scene")
+    ref = tmr._exposure(hb, mesh)
+    log("raycast_grid", f"cast_scene hit fraction {scene.hit_fraction:.6f}, areas "
+        f"{scene.surface_area_3d:.4f}/{scene.surface_area_2d:.4f} m²; brute exposure of the "
+        f"same rays {ref.hit_fraction:.6f}, {ref.surface_area_3d:.4f}/{ref.surface_area_2d:.4f}")
+    if not scene.hit_fraction > 0 or any(
+            abs(x - y) > 1e-4 * abs(y) for x, y in ((scene.hit_fraction, ref.hit_fraction),
+                                                    (scene.surface_area_3d, ref.surface_area_3d),
+                                                    (scene.surface_area_2d, ref.surface_area_2d))):
+        fail("cast_scene through the image grid disagrees with the brute exposure")
+    out["cast_scene"] = dict(hit_fraction=scene.hit_fraction, area_3d=scene.surface_area_3d)
+    del built, scene
+
+    # (c) the eye inside the canopy: straddling triangles take the residual pass
+    grid = rg.build_image_grid(mesh.vertices, mesh.triangles, center,
+                               center + torch.tensor([1.0, 0.3, 0.1], device="cuda"), zup, 90.0,
+                               640, 480)
+    n_res = int((grid.residual >= 0).sum())
+    launches = out["counts"]["mt_raycast"]
+    h = drive("image_cast eye inside 640x480", lambda: rg.image_cast(grid), 640 * 480)
+    out["residual_launches"] = out["counts"]["mt_raycast"] - launches
+    log("raycast_grid", f"eye inside the canopy: {n_res} residual triangles, mt_raycast "
+        f"launches {out['residual_launches']}")
+    if n_res == 0 or out["residual_launches"] <= 0:
+        fail("the eye-inside cast did not run its residual pass through mt_raycast")
+    o, d = rg.image_rays(grid)
+    out["inside_check"] = against_brute(mt, h, brute(o, d, mesh), o, d, mesh,
+                                        "image_cast eye inside")
+    del grid, h
+
+    # (d) the cell cast along (0.3, 0.2, -0.93), 16 rays a cell side
+    direction = np.array([0.3, 0.2, -0.93], np.float32)
+    direction /= np.linalg.norm(direction)
+    t = time.perf_counter()
+    sgrid = rg.build_ray_grid(mesh.vertices, mesh.triangles, direction)
+    sbuild = time.perf_counter() - t
+    n_sun = sgrid.nx * sgrid.ny * 256
+    torch.cuda.reset_peak_memory_stats()
+    drive("cell_cast_parallel rpc 16 first",
+          lambda: rg.cell_cast_parallel(sgrid, direction, rays_per_cell_side=16), n_sun)
+    res = drive("cell_cast_parallel rpc 16 steady",
+                lambda: rg.cell_cast_parallel(sgrid, direction, rays_per_cell_side=16), n_sun)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("raycast_grid", f"ray grid {sgrid.nx}x{sgrid.ny} cells of {sgrid.cell:.4f} m, cap "
+        f"{sgrid.tri_of_slot.shape[1]}, build {sbuild:.3f}s (host); {n_sun} rays; "
+        f"max_memory_allocated {peak:.3f} GiB")
+    cells = torch.randperm(sgrid.nx * sgrid.ny, generator=torch.Generator().manual_seed(0))[:4096]
+    cells = cells.sort().values.to(device="cuda", dtype=torch.int32)
+    o = rg.cell_cast_origins(sgrid, direction, 16, 1e3, cell_ids=cells).reshape(-1, 3)
+    d = rg._unit(torch.as_tensor(direction, device="cuda")).expand_as(o)
+    sampled = tr.Hits(res.t[cells.long()].reshape(-1), res.tri[cells.long()].reshape(-1),
+                      torch.zeros_like(o[:, :2]), res.count[cells.long()].reshape(-1))
+    out["cell_check"] = against_brute(mt, sampled, brute(o, d, mesh), o, d, mesh,
+                                      "cell cast, 4096 cells")
+    out["cell"] = dict(rays=n_sun, cap=sgrid.tri_of_slot.shape[1], peak_gib=peak,
+                       build_s=sbuild, steady_s=out["s"]["cell_cast_parallel rpc 16 steady"])
+    del sgrid, res, o, d
+
+    # (e) the 3D grid: the bench's build and 10⁶-ray bundle (bench.py:435-470)
+    t = time.perf_counter()
+    grid3 = g3.build_grid3d_two_level(mesh.vertices, mesh.triangles)
+    build3 = time.perf_counter() - t
+    two = isinstance(grid3, g3.TwoLevelGrid)
+    prim = grid3.primary if two else grid3
+    log("raycast_grid", f"build_grid3d_two_level {build3:.3f}s (host): escalated to "
+        f"TwoLevelGrid {two}; primary {prim.nx}x{prim.ny}x{prim.nz} cells of {prim.cell:.4f} m, "
+        f"cap {prim.cap}, {prim.n_occupied} occupied, residual {prim.n_residual}"
+        + (f"; sub {grid3.sub.nx}x{grid3.sub.ny}x{grid3.sub.nz}, cap {grid3.sub.cap}"
+           if two else ""))
+    rng = np.random.default_rng(0)
+    n_bundle = 1_000_000
+    vtx = mesh.vertices.cpu().numpy()
+    blo, bhi = vtx.min(0), vtx.max(0)
+    o_b = torch.as_tensor(rng.uniform(blo - 2, bhi + 2, (n_bundle, 3)).astype(np.float32),
+                          device="cuda")
+    d_np = rng.normal(size=(n_bundle, 3)).astype(np.float32)
+    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
+    d_b = torch.as_tensor(d_np, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    drive("two_level_cast 1e6 rays first",
+          lambda: g3.two_level_cast(grid3, o_b, d_b, ray_tile=DDA_RAY_TILE), n_bundle)
+    hb = drive("two_level_cast 1e6 rays steady",
+               lambda: g3.two_level_cast(grid3, o_b, d_b, ray_tile=DDA_RAY_TILE), n_bundle)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    share = float(torch.isfinite(hb.t).float().mean())
+    log("raycast_grid", f"two_level_cast (count_all=False, ray_tile {DDA_RAY_TILE}): "
+        f"max_memory_allocated {peak:.3f} GiB, hit share {share:.4f}")
+    n_chk = 65_536
+    oc, dc = o_b[:n_chk], d_b[:n_chk]
+    b = brute(oc, dc, mesh)
+    sub = tr.Hits(hb.t[:n_chk], hb.tri[:n_chk], hb.uv[:n_chk], hb.count[:n_chk])
+    out["grid3d_check"] = against_brute(mt, sub, b, oc, dc, mesh,
+                                        "two_level_cast, first 65 536 rays", counts=False)
+    hc = drive("two_level_cast count_all 65 536 rays",
+               lambda: g3.two_level_cast(grid3, oc, dc, count_all=True), n_chk)
+    out["grid3d_count_check"] = against_brute(mt, hc, b, oc, dc, mesh,
+                                              "two_level_cast count_all, 65 536 rays")
+    out["grid3d"] = dict(build_s=build3, two_level=two, peak_gib=peak,
+                         first_s=out["s"]["two_level_cast 1e6 rays first"],
+                         steady_s=out["s"]["two_level_cast 1e6 rays steady"])
+    del grid3, hb, o_b, d_b
+
+    # (f) the entry points that reach the grid on this mesh
+    tr.clear_grid_cache()
+    ha = drive("cast_rays(auto) 65 536 rays, grid build included",
+               lambda: tr.cast_rays(oc, dc, mesh.vertices, mesh.triangles), n_chk)
+    drive("cast_rays(auto) 65 536 rays, cached grid",
+          lambda: tr.cast_rays(oc, dc, mesh.vertices, mesh.triangles), n_chk)
+    if not all(torch.equal(x, y) for x, y in zip(ha, hc)):
+        fail("cast_rays(auto) differs from two_level_cast(count_all=True) on the same grid")
+    v = mesh.vertices.cpu().numpy()
+    g = np.linspace(v.min(0), v.max(0), 64)
+    gx, gy = np.meshgrid(g[:, 0], g[:, 1], indexing="xy")
+    p = torch.as_tensor(np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, v[:, 2].mean())],
+                                 1).astype(np.float32), device="cuda")
+    occ = drive("occupancy 4096 points", lambda: tr.occupancy(p, mesh.vertices, mesh.triangles))
+    occ_b = tr.occupancy(p, mesh.vertices, mesh.triangles, backend="kernel")
+    log("raycast_grid", f"occupancy: {int(occ.sum())} of {p.shape[0]} inside, equal to the "
+        f"brute parity {bool(torch.equal(occ, occ_b))}")
+    if not torch.equal(occ, occ_b):
+        fail("occupancy through the grid differs from the brute parity")
+    for el in (30.0, 60.0, 90.0):
+        sun = {bk: drive(f"sun_exposure el {el:g} {bk} 256x256",
+                         lambda: tmr.sun_exposure(mesh, 180.0, el, 256, 256, backend=bk,
+                                                  device="cuda"), 256 * 256)
+               for bk in ("brute", "grid")}
+        bs, gs = sun["brute"], sun["grid"]
+        log("raycast_grid", f"sun el {el:g}: brute frac {bs.hit_fraction:.6f} areas "
+            f"{bs.surface_area_3d:.4f}/{bs.surface_area_2d:.4f}; grid frac "
+            f"{gs.hit_fraction:.6f} areas {gs.surface_area_3d:.4f}/{gs.surface_area_2d:.4f}")
+        if bs.hit_fraction != gs.hit_fraction or any(
+                abs(x - y) > 1e-4 * abs(x) for x, y in ((bs.surface_area_3d, gs.surface_area_3d),
+                                                        (bs.surface_area_2d, gs.surface_area_2d))):
+            fail(f"sun exposure at elevation {el:g} on the bench scene: backends disagree")
+    torch.cuda.reset_peak_memory_stats()
+    mri = drive("mri_slices 8x64x64",
+                lambda: tmr.mri_slices(mesh, n_slices=8, resolution=64, device="cuda"),
+                8 * 64 * 64)
+    log("raycast_grid", f"mri_slices {tuple(mri.shape)} finite {bool(torch.isfinite(mri).all())}, "
+        f"inside share {float((mri < 0).float().mean()):.4f}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (its distance is brute in both "
+        f"packages)")
+    if mri.shape != (8, 64, 64) or not bool(torch.isfinite(mri).all()):
+        fail("mri_slices on the bench scene gave no usable result")
+    tr.clear_grid_cache()
+    out["path_launches"] = dict(out["counts"])
+    log("raycast_grid", f"launches over the path's drives: {out['path_launches']}")
+    if out["path_launches"]["mt_raycast"] <= 0:
+        fail("the raycast grid path never launched mt_raycast")
+
+    # the card against the CPU on a small scene (a few thousand triangles)
+    small = vm.simplify_mesh(raw, target_triangles=8000)
+    small_cpu = TriMesh(small.vertices.cpu(), small.triangles.cpu())
+    cmp = {}
+    rng = np.random.default_rng(1)
+    vs = small_cpu.vertices.numpy()
+    o_s = rng.uniform(vs.min(0) - 1, vs.max(0) + 1, (20_000, 3)).astype(np.float32)
+    d_s = rng.normal(size=(20_000, 3)).astype(np.float32)
+    d_s /= np.linalg.norm(d_s, axis=1, keepdims=True)
+    c_s = small_cpu.vertices.mean(dim=0)
+    for dev, m in (("cuda", small), ("cpu", small_cpu)):
+        cen = c_s.to(dev)
+        ig = rg.build_image_grid(m.vertices, m.triangles, cen + torch.tensor(
+            [0.0, -30.0, 18.0], device=dev), cen, zup.to(dev), 60.0, 160, 120)
+        rgd = rg.build_ray_grid(m.vertices, m.triangles, direction)
+        g3d = g3.build_grid3d(m.vertices, m.triangles)
+        cmp[dev] = dict(
+            image=rg.image_cast(ig),
+            cell=rg.cell_cast_parallel(rgd, direction, rays_per_cell_side=4),
+            grid=g3.grid_cast(g3d, torch.as_tensor(o_s, device=dev),
+                              torch.as_tensor(d_s, device=dev), count_all=True))
+    worst = 0.0
+    for k in ("image", "cell", "grid"):
+        a, b = cmp["cuda"][k], cmp["cpu"][k]
+        ta, tb = a.t.cpu(), b.t
+        fin = torch.isfinite(tb)
+        equal = torch.equal(a.tri.cpu(), b.tri) and torch.equal(a.count.cpu(), b.count) and \
+            torch.equal(torch.isfinite(ta), fin)
+        rel = float(((ta - tb).abs() / tb.abs())[fin].max()) if bool(fin.any()) else 0.0
+        worst = max(worst, rel)
+        log("raycast_grid", f"card = CPU, {small.n_triangles()} triangles, {k}: tri and counts "
+            f"equal {equal}, {int(fin.sum())} hits, t max rel {rel:.3e}")
+        if not equal or rel > 1e-6:
+            fail(f"card = CPU: the {k} cast differs between the card and the CPU")
+    out["card_cpu_t_rel"] = worst
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--points", type=int, default=2_000_000,
@@ -1213,7 +1574,9 @@ def main() -> None:
         from pyqsm_tpu_torch.models.plot_pipeline import process_plot
         from pyqsm_tpu_torch.ops import band_matvec as bm
         from pyqsm_tpu_torch.ops import cuda_build
+        from pyqsm_tpu_torch.ops import grid3d as g3
         from pyqsm_tpu_torch.ops import laplacian as lap
+        from pyqsm_tpu_torch.ops.mesh import TriMesh
         from pyqsm_tpu_torch.ops import mt_raycast as mt
         from pyqsm_tpu_torch.ops import raygrid as rg
         from pyqsm_tpu_torch.ops import raytrace as tr
@@ -1435,9 +1798,15 @@ def main() -> None:
     check_canopy_path(cp, res)
     single = single_tree_path(bm, mt, sk, canopy, cp, Config().skeletonize)
     card_equals_cpu(sk, canopy, small, r_gpu.growth, r_gpu.trees, Config().skeletonize)
+
+    # 14. the ray-casting path at the bench's scene: the image grid, the cell
+    # cast and the 3D grid on the canopy mesh decimated to 400 000 triangles
+    torch.cuda.empty_cache()
+    rgp = raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray, cfg)
     paths = {"main (phase 5)": main_counts, "canopy (13a)": cp["counts"],
              "single-tree skeletonize (13b)": single["skeletonize"]["launches"],
-             "single-tree canopy_metrics (13b)": single["canopy_metrics"]["launches"]}
+             "single-tree canopy_metrics (13b)": single["canopy_metrics"]["launches"],
+             "raycast grid (14)": rgp["path_launches"]}
 
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]
@@ -1468,7 +1837,10 @@ def main() -> None:
              shares=cs["shares"], plan=cs["plan"],
              sun={k: mts["sun"][k] for k in mt_keys},
              occupancy={k: mts["occupancy"][k] for k in mt_keys},
-             edge_cases=len(edges)),
+             edge_cases=len(edges),
+             raycast_grid={k: rgp[k] for k in ("n_raw", "n_tri", "image_kept", "image_raw",
+                                               "cell", "grid3d", "residual_launches",
+                                               "card_cpu_t_rel")}),
         dict(name="band_matvec_bf16", route="cuda", source="pyqsm_tpu_torch/csrc/band_matvec_bf16.cu",
              replaces="pyqsm_tpu/ops/pallas_kernels.py:183", launches=claim["launches"],
              max_abs_err=max(bf["claim"]["max_abs_err"], bf["c128"]["max_abs_err"]),

@@ -16,7 +16,7 @@ import torch
 from pyqsm_tpu_torch.config import _SECTION_TYPES, Config
 from pyqsm_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pyqsm_tpu_torch.ops.mesh import TriMesh
-from pyqsm_tpu_torch.ops.sparse import ELLLaplacian
+from pyqsm_tpu_torch.ops.sparse import ELLLaplacian, transpose_ell_sorted
 from pyqsm_tpu_torch.state import Cylinders, PointCloud
 
 _KINDS = {"laplacian": ELLLaplacian, "point_cloud": PointCloud, "cylinders": Cylinders}
@@ -56,6 +56,13 @@ def state_from_numpy(kind: str, arrays: dict, batched: bool = False,
         elif kind == "laplacian" and f in _SCALAR_FIELDS and t.dim() == 0:
             t = t[None]
         out[f] = t
+    if kind == "laplacian" and "t_idx" in out:
+        # the JAX package keeps no sort of the edges by destination: derive
+        # the exact scatter's order, and read the overflow flag once, here
+        kt = out["t_idx"].shape[-1]
+        _, _, over, src, dst, sw = transpose_ell_sorted(out["nbr_idx"], out["w"], kt)
+        out.update(tx_src=src, tx_dst=dst, tx_w=sw)
+        out["t_overflow_any"] = bool(out.get("t_overflow", over).any())
     return cls(**out)
 
 

@@ -4,10 +4,12 @@ bundles, swept sun angles (the canopy-exposure study), hit-point clouds,
 every crossing of a nadir grid, and signed-distance slabs.
 
 Every entry point runs on ``device`` (``cuda`` unless the caller asks for
-the CPU) and moves the mesh there. Brute casts go through
-``ops.raytrace.cast_rays``, which sends scenes below 4096 triangles to the
-fused kernel; ``cast_scene`` at 2048 triangles or more takes the JAX
-package's image grid, which is not ported yet, and raises.
+the CPU) and moves the mesh there. ``cast_scene`` casts through the
+screen-space image grid (``ops.raygrid.image_cast``) at 2048 triangles or
+more and through ``ops.raytrace.cast_rays`` below; ``cast_rays`` sends
+scenes below 4096 triangles to the fused kernel and larger ones to the 3D
+grid (``ops.grid3d``), which is where ``occupancy``, ``mri_slices`` and the
+brute fallback of ``sun_exposure`` go on large meshes.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 from pyqsm_tpu_torch.config import RaycastConfig
 from pyqsm_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from pyqsm_tpu_torch.ops.mesh import TriMesh
-from pyqsm_tpu_torch.ops.raygrid import build_ray_grid, grid_cast_parallel
+from pyqsm_tpu_torch.ops.raygrid import (build_image_grid, build_ray_grid, grid_cast_parallel,
+                                         image_cast)
 from pyqsm_tpu_torch.ops.raytrace import (HitList, Hits, cast_rays, exposed_surface_area,
                                           hit_points, hit_points_list, list_intersections,
                                           occupancy, parallel_rays, pinhole_rays,
@@ -46,21 +49,22 @@ def cast_scene(mesh: TriMesh, eye=None, center=None, cfg: RaycastConfig | None =
                device: str | torch.device = DEFAULT_DEVICE) -> ExposureResult:
     """Pinhole cast + exposed-surface-area metrics (the reference's
     ``cast_rays``: the eye defaults to center + 10 z, the center to the
-    vertex mean)."""
+    vertex mean). Meshes of ``IMAGE_GRID_TRIANGLES`` or more cast through
+    the screen-space image grid, exact like the brute cast."""
     dev = resolve_device(device)
     cfg = cfg or RaycastConfig()
     mesh = mesh.to(dev)
-    if mesh.triangles.shape[0] >= IMAGE_GRID_TRIANGLES:
-        raise NotImplementedError(
-            f"cast_scene: meshes of {IMAGE_GRID_TRIANGLES} or more triangles take the image "
-            "grid (pyqsm_tpu/ops/raygrid.py build_image_grid/image_cast), which the port has "
-            "not ported yet (ROADMAP §1 item 14, image grid)")
     center = mesh.vertices.mean(dim=0) if center is None else \
         torch.as_tensor(center, dtype=torch.float32, device=dev)
     eye = center + torch.tensor([0.0, 0.0, 10.0], device=dev) if eye is None else \
         torch.as_tensor(eye, dtype=torch.float32, device=dev)
-    origins, dirs = pinhole_rays(eye, center, [0.0, 1.0, 0.0], cfg.fov_deg, cfg.width_px,
-                                 cfg.height_px, device=dev)
+    up = [0.0, 1.0, 0.0]
+    if mesh.triangles.shape[0] >= IMAGE_GRID_TRIANGLES:
+        grid = build_image_grid(mesh.vertices, mesh.triangles, eye, center, up, cfg.fov_deg,
+                                cfg.width_px, cfg.height_px)
+        return _exposure(image_cast(grid), mesh)
+    origins, dirs = pinhole_rays(eye, center, up, cfg.fov_deg, cfg.width_px, cfg.height_px,
+                                 device=dev)
     return _exposure(cast_rays(origins, dirs, mesh.vertices, mesh.triangles), mesh)
 
 

@@ -79,6 +79,8 @@ def _select_L(active: torch.Tensor, new: ELLLaplacian, old: ELLLaplacian) -> ELL
     def pick(a, b):
         if a is None:
             return None
+        if isinstance(a, bool):  # t_overflow_any: a tree of either may be kept
+            return a or b
         return torch.where(active.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
     return ELLLaplacian(*[pick(a, b) for a, b in zip(new, old)])
 

@@ -67,13 +67,14 @@ def compact_labels(labels: torch.Tensor) -> torch.Tensor:
 
 def dbscan_from_neighbors(nbr_idx: torch.Tensor, nbr_dist: torch.Tensor,
                           mask: torch.Tensor, min_samples: int = 10,
-                          max_rounds: int = 64,
+                          neighbor_cap: int = 0, max_rounds: int = 64,
                           core: torch.Tensor | None = None) -> torch.Tensor:
     """DBSCAN from eps-neighbor lists: core-core components by min row id,
     border points adopt their min core-neighbor label, noise -1; labels
     compacted to 0..C-1. ``core`` (exact counts) overrides the list-based
-    core test."""
-    del nbr_dist
+    core test. ``neighbor_cap`` is unused; it keeps the JAX package's
+    positional order."""
+    del nbr_dist, neighbor_cap
     n = nbr_idx.shape[0]
     valid = (nbr_idx >= 0) & mask[:, None]
     if core is None:

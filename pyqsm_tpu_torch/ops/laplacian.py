@@ -10,7 +10,7 @@ import torch
 
 from pyqsm_tpu_torch.ops.neighbors import knn
 from pyqsm_tpu_torch.ops.sparse import (ELLLaplacian, band_transpose, build_banded,
-                                        build_transpose_ell, sort_spill_transpose)
+                                        sort_spill_transpose, transpose_ell_sorted)
 
 
 def point_cloud_laplacian(points: torch.Tensor, mask: torch.Tensor, n_neighbors: int = 20,
@@ -44,6 +44,7 @@ def point_cloud_laplacian(points: torch.Tensor, mask: torch.Tensor, n_neighbors:
         return ELLLaplacian(nbr_idx=idx, w=w, deg=deg, mass=mass, b_w=b_w, s_i=s_i, s_j=s_j,
                             s_w=s_w, s_overflow=s_over, st_i=st_i, st_j=st_j, st_w=st_w,
                             b_w_t=band_transpose(b_w))
-    t_idx, t_w, t_over = build_transpose_ell(idx, w, kt=2 * n_neighbors)
+    t_idx, t_w, t_over, src, dst, sw = transpose_ell_sorted(idx, w, kt=2 * n_neighbors)
     return ELLLaplacian(nbr_idx=idx, w=w, deg=deg, mass=mass, t_idx=t_idx, t_w=t_w,
-                        t_overflow=t_over)
+                        t_overflow=t_over, tx_src=src, tx_dst=dst, tx_w=sw,
+                        t_overflow_any=bool(t_over.any()))

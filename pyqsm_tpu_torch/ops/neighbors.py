@@ -35,6 +35,13 @@ def _sq3(x: torch.Tensor) -> torch.Tensor:
     return (x64[..., 2] * x64[..., 2] + s).float()
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 a·b + c rounded once, as the multiply-adds XLA contracts on
+    the CPU: through float64, where the product is exact."""
+    wide = [x.double() if isinstance(x, torch.Tensor) else x for x in (a, b, c)]
+    return (wide[0] * wide[1] + wide[2]).float()
+
+
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root, as XLA's: through float64
     (torch's vectorised CPU float32 sqrt misrounds about 0.7 % of inputs

@@ -5,7 +5,9 @@ crossing parity, hit reconstruction, exposed areas and unsigned distance.
 
 ``cast_rays`` routes like the JAX package does on the TPU: below 4096
 triangles to the fused kernel (``ops/mt_raycast.py``), at 4096 or more to
-the uniform-grid caster, which is not ported yet and raises.
+the uniform-grid caster (``ops/grid3d.py``, ``two_level_cast`` with every
+crossing counted), whose grid is built once per mesh and kept in a small
+cache keyed on the mesh's tensors.
 """
 
 from __future__ import annotations
@@ -38,23 +40,72 @@ class HitList(NamedTuple):
     count: torch.Tensor  # [R] i32 TOTAL crossings (may exceed K)
 
 
+_GRID_CACHE: list = []  # [(weakref(vertices), weakref(triangles), grid)]
+_GRID_CACHE_MAX = 2
+_GRID_CACHE_BYTES = 2 << 30  # total bytes across cached grids
+
+
+def clear_grid_cache() -> None:
+    """Drop every cached grid (and the device memory its packed rows hold)."""
+    _GRID_CACHE.clear()
+
+
+def _grid_nbytes(g) -> int:
+    return sum(_grid_nbytes(a) if isinstance(a, tuple)
+               else int(a.nbytes) if isinstance(a, torch.Tensor) else 0 for a in g)
+
+
+def _cached_grid3d(vertices: torch.Tensor, triangles: torch.Tensor):
+    """Build or reuse the grid of a mesh, keyed on its tensor OBJECTS
+    (weakrefs: a freed mesh drops out). At most ``_GRID_CACHE_MAX`` grids
+    and ``_GRID_CACHE_BYTES`` in all are kept (one is kept whatever its
+    size), oldest evicted first; ``clear_grid_cache`` frees them all."""
+    import weakref
+
+    from pyqsm_tpu_torch.ops.grid3d import build_grid3d_two_level
+
+    live = []
+    hit = None
+    for wv, wt, g in _GRID_CACHE:
+        v, t = wv(), wt()
+        if v is None or t is None:
+            continue
+        live.append((wv, wt, g))
+        if v is vertices and t is triangles:
+            hit = g
+    _GRID_CACHE[:] = live
+    if hit is not None:
+        return hit
+    g = build_grid3d_two_level(vertices, triangles)
+    _GRID_CACHE.append((weakref.ref(vertices), weakref.ref(triangles), g))
+    del _GRID_CACHE[:-_GRID_CACHE_MAX]
+    while (len(_GRID_CACHE) > 1
+           and sum(_grid_nbytes(e[2]) for e in _GRID_CACHE) > _GRID_CACHE_BYTES):
+        _GRID_CACHE.pop(0)
+    return g
+
+
 def cast_rays(origins: torch.Tensor, dirs: torch.Tensor, vertices: torch.Tensor,
-              triangles: torch.Tensor, backend: str = "auto") -> Hits:
+              triangles: torch.Tensor, backend: str = "auto", grid=None) -> Hits:
     """Closest hit + hit count of every ray (directions need not be
     normalised; t is in direction units).
 
     ``backend``: "kernel" (the fused kernel, ``ops.mt_raycast``; its plain
     version for CPU tensors), "plain" (the tiled torch cast), "grid" (the
-    uniform-grid caster of the JAX package's ``ops/grid3d.py``, not ported
-    yet: raises) or "auto" ("kernel" below 4096 triangles, "grid" from
+    uniform-grid DDA of ``ops.grid3d``, every crossing counted; the grid is
+    cached per mesh tensor, or pass a prebuilt ``grid=``, a ``Grid3D`` or a
+    ``TwoLevelGrid``) or "auto" ("kernel" below 4096 triangles, "grid" from
     4096, the JAX package's routing on the TPU)."""
+    if grid is not None:
+        backend = "grid"
     if backend == "auto":
         backend = "grid" if triangles.shape[0] >= GRID_TRIANGLES else "kernel"
     if backend == "grid":
-        raise NotImplementedError(
-            f"cast_rays: scenes of {GRID_TRIANGLES} or more triangles take the uniform-grid "
-            "caster (pyqsm_tpu/ops/grid3d.py), which the port has not ported yet "
-            "(ROADMAP §1 item 14, grid3d)")
+        from pyqsm_tpu_torch.ops.grid3d import two_level_cast
+
+        if grid is None:
+            grid = _cached_grid3d(vertices, triangles)
+        return two_level_cast(grid, origins, dirs, count_all=True)
     if backend == "kernel":
         return Hits(*mt_raycast(origins, dirs, vertices, triangles))
     if backend == "plain":

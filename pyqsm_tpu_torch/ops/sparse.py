@@ -25,7 +25,9 @@ class ELLLaplacian(NamedTuple):
 
     It carries one of two matvec forms. ELL: ``t_idx``/``t_w``/
     ``t_overflow``, the transpose ELL (Lᵀ gathers; a tree whose in-degree
-    overflowed ``kt`` takes the exact scatter). Banded (rows Morton-ordered):
+    overflowed ``kt`` takes the exact scatter, which sums the edges the
+    build sorted stably by destination, ``tx_*``; ``t_overflow_any`` is the
+    build's one host read of the flag). Banded (rows Morton-ordered):
     ``b_w``/``b_w_t`` window tiles ``[T, nb, 256, 768]`` of W and Wᵀ plus
     the exact spill list sorted by row (``s_*``) and by column (``st_*``).
     When ``s_overflow`` is set for a tree its banded form is LOSSY; the
@@ -47,6 +49,10 @@ class ELLLaplacian(NamedTuple):
     st_j: torch.Tensor | None = None  # [T, R] cols ascending
     st_w: torch.Tensor | None = None  # [T, R]
     b_w_t: torch.Tensor | None = None  # [T, nb, BS, 3·BS] banded Wᵀ
+    tx_src: torch.Tensor | None = None  # [T, N·k] i64 edge sources, sorted by destination
+    tx_dst: torch.Tensor | None = None  # [T, N·k] i64 destinations ascending (N = padding)
+    tx_w: torch.Tensor | None = None  # [T, N·k] edge weights in that order
+    t_overflow_any: bool | None = None  # any tree's t_overflow, read once at the build
 
 
 def morton_codes(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -171,6 +177,14 @@ def build_transpose_ell(nbr_idx: torch.Tensor, w: torch.Tensor, kt: int):
     """ELL rows of Wᵀ for [..., N, k] lists: each row's in-edge sources and
     weights in source order, ``(t_idx, t_w, overflow)`` with ``overflow``
     per leading batch entry when an in-degree exceeds ``kt``."""
+    return transpose_ell_sorted(nbr_idx, w, kt)[:3]
+
+
+def transpose_ell_sorted(nbr_idx: torch.Tensor, w: torch.Tensor, kt: int):
+    """``build_transpose_ell`` plus the stable sort it is built from, per
+    leading batch entry: ``(t_idx, t_w, overflow, src, dst, w_sorted)``,
+    the [..., N·k] edge sources, destinations (ascending; N on padding) and
+    weights ordered by destination, sources ascending within one."""
     squeeze = nbr_idx.dim() == 2
     if squeeze:
         nbr_idx, w = nbr_idx[None], w[None]
@@ -193,9 +207,10 @@ def build_transpose_ell(nbr_idx: torch.Tensor, w: torch.Tensor, kt: int):
     safe = torch.clamp(take, max=sd.shape[0] - 1)
     t_idx = torch.where(valid, ss[safe], -1).to(torch.int32).reshape(t, n, kt)
     t_w = torch.where(valid, sw[safe], 0.0).reshape(t, n, kt)
-    if squeeze:
-        return t_idx[0], t_w[0], overflow[0]
-    return t_idx, t_w, overflow
+    # every tree holds N·k edges, so its block of the global sort is a row
+    out = (t_idx, t_w, overflow, ss.reshape(t, n * k), (sd.reshape(t, n * k) - off),
+           sw.reshape(t, n * k))
+    return tuple(x[0] for x in out) if squeeze else out
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -221,12 +236,19 @@ def laplacian_matvec(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
 
 
 def _rmatvec_scatter(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
-    """Exact Lᵀ @ x by scatter (any in-degree)."""
+    """Exact Lᵀ @ x by scatter (any in-degree). With the build's sort
+    (``tx_*``) the sums run over ascending destinations and sort nothing;
+    each destination still adds its edges in source order, as the unsorted
+    scatter does."""
     t, n, k = L.nbr_idx.shape
     c = x.shape[-1]
-    contrib = L.w[..., None] * x[:, :, None, :]
-    dst = torch.where(L.nbr_idx >= 0, L.nbr_idx.long(), n)
-    out = segment_sum(contrib.reshape(t, n * k, c), dst.reshape(t, n * k), n)
+    if L.tx_src is not None:
+        xs = torch.gather(x, 1, L.tx_src[..., None].expand(-1, -1, c))
+        out = segment_sum(L.tx_w[..., None] * xs, L.tx_dst, n, sorted_index=True)
+    else:
+        contrib = L.w[..., None] * x[:, :, None, :]
+        dst = torch.where(L.nbr_idx >= 0, L.nbr_idx.long(), n)
+        out = segment_sum(contrib.reshape(t, n * k, c), dst.reshape(t, n * k), n)
     return L.deg[..., None] * x - out
 
 
@@ -236,7 +258,8 @@ def laplacian_rmatvec(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
     kernel, or the forward tiles through the transpose kernel when no Wᵀ
     band was built; the column-sorted spill, or the row-sorted one) →
     transpose-ELL gather (trees whose in-degree overflowed take the exact
-    scatter) → exact scatter."""
+    scatter; the build's ``t_overflow_any`` decides without a host read) →
+    exact scatter."""
     n = x.shape[1]
     if L.b_w is not None:
         if L.st_j is not None:
@@ -249,7 +272,12 @@ def laplacian_rmatvec(L: ELLLaplacian, x: torch.Tensor) -> torch.Tensor:
         return _rmatvec_scatter(L, x)
     gathered = L.deg[..., None] * x - torch.einsum(
         "tnk,tnkc->tnc", L.t_w, _gather_rows(x, L.t_idx))
-    if L.t_overflow is None or not bool(L.t_overflow.any()):
+    if L.t_overflow is None:
+        return gathered
+    overflowed = L.t_overflow_any
+    if overflowed is None:  # assembled by hand, not by a build
+        overflowed = bool(L.t_overflow.any())
+    if not overflowed:
         return gathered
     return torch.where(L.t_overflow[:, None, None], _rmatvec_scatter(L, x), gathered)
 

@@ -143,3 +143,22 @@ def test_first_center_draws_a_live_row_alike_for_a_seed():
              for s in range(40)]
     assert rows == again
     assert int(tcl.first_center(torch.zeros(5, dtype=torch.bool), torch.Generator())) in range(5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dbscan_from_neighbors_binds_positional_calls_as_jax(seed):
+    """The fifth parameter is the JAX package's unused ``neighbor_cap``, so a
+    positional call written against it (min_samples 10, neighbor_cap 0,
+    max_rounds 64) binds the same way and gives the same labels."""
+    from pyqsm_tpu_torch.ops.neighbors import radius_knn
+
+    pts, m = _dbscan_plot(seed)
+    tp, tm = torch.as_tensor(pts), torch.as_tensor(m)
+    d, i = radius_knn(tp, tp, 0.3, 64, query_mask=tm, point_mask=tm)
+    lt = tcl.dbscan_from_neighbors(i, d, tm, 10, 0, 64)
+    lj = jcl.dbscan_from_neighbors(jnp.asarray(i.numpy()), jnp.asarray(d.numpy()),
+                                   jnp.asarray(m), 10, 0, 64)
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    assert len(np.unique(lt.numpy())) > 2
+    np.testing.assert_array_equal(lt.numpy(), tcl.dbscan_from_neighbors(
+        i, d, tm, min_samples=10, neighbor_cap=0, max_rounds=64).numpy())

@@ -147,18 +147,6 @@ def test_cast_rays_backends_match_jax(backend):
     _assert_hits_match(hn["t"], hn["tri"], hn["uv"], hn["count"], *(_np(x) for x in ref))
 
 
-def test_cast_rays_grid_route_raises_until_ported():
-    """4096 triangles or more take the uniform grid on the TPU; the port
-    raises there instead of running a brute cast in its place."""
-    v = np.zeros((3, 3), np.float32)
-    t = np.full((4096, 3), -1, np.int32)
-    o = np.zeros((4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="grid3d"):
-        tr.cast_rays(_t(o), _t(o), _t(v), _t(t))
-    with pytest.raises(NotImplementedError):
-        tr.cast_rays(_t(o), _t(o), _t(v), _t(t[:8]), backend="grid")
-
-
 def test_list_intersections_matches_jax():
     v, t, o, d = _scene("padded")
     hl = tr.list_intersections(_t(o), _t(d), _t(v), _t(t), max_hits=4, tri_tile=128)
@@ -362,14 +350,6 @@ def test_cast_scene_matches_jax(canopy):
     ref = jmr.cast_scene(jmesh, cfg=JRaycastConfig(width_px=96, height_px=72))
     assert ours.hit_fraction > 0
     _assert_exposure_close(ours, ref)
-
-
-def test_cast_scene_image_grid_route_raises(canopy):
-    mesh = canopy[0]
-    pad = torch.full((2048, 3), -1, dtype=torch.int32)
-    big = tm.TriMesh(mesh.vertices, torch.cat([mesh.triangles, pad]))
-    with pytest.raises(NotImplementedError, match="image grid"):
-        tmr.cast_scene(big, device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["grid", "brute"])

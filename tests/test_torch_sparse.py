@@ -301,6 +301,101 @@ def test_transpose_ell_overflow_takes_the_exact_scatter(kt):
                                rtol=1e-5, atol=1e-6)
 
 
+def _hub_graph(seed, n=3000, k=10, hubs=6):
+    """kNN-like lists where a few hub rows sit in many lists: their
+    in-degree far exceeds a transpose ELL of 2k slots."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, (n, k)).astype(np.int32)
+    idx[rng.uniform(size=(n, k)) < 0.15] = -1
+    idx[:, 0] = rng.integers(0, hubs, n)  # every row names a hub first
+    w = np.where(idx >= 0, rng.uniform(0.05, 1.0, (n, k)), 0.0).astype(np.float32)
+    return idx, w, rng.normal(size=(n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sorted_scatter_equals_unsorted_bit_for_bit(seed):
+    """The exact Lᵀ scatter over the build's destination-sorted edges sums
+    each destination in source order, as the unsorted scatter does: equal
+    bit for bit on an overflowing Laplacian (and through
+    ``laplacian_rmatvec``, which takes it for the overflowed trees)."""
+    idx, w, x = _hub_graph(seed)
+    T = lambda a: torch.as_tensor(a)[None]  # noqa: E731
+    t_idx, t_w, over, src, dst, sw = tsp.transpose_ell_sorted(T(idx), T(w), kt=20)
+    assert bool(over.all())
+    assert bool((dst[:, 1:] >= dst[:, :-1]).all())
+    L = tsp.ELLLaplacian(T(idx), T(w), T(w.sum(1)), torch.ones(1, len(idx)), t_idx=t_idx,
+                         t_w=t_w, t_overflow=over, tx_src=src, tx_dst=dst, tx_w=sw,
+                         t_overflow_any=True)
+    unsorted = L._replace(tx_src=None, tx_dst=None, tx_w=None)
+    xt = T(x)
+    assert torch.equal(tsp._rmatvec_scatter(L, xt), tsp._rmatvec_scatter(unsorted, xt))
+    assert torch.equal(tsp.laplacian_rmatvec(L, xt), tsp.laplacian_rmatvec(unsorted, xt))
+    y = tsp.laplacian_rmatvec(L, xt)[0].numpy()
+    np.testing.assert_allclose(y, _dense(idx, w, w.sum(1)).T @ x, rtol=1e-4, atol=1e-4)
+
+
+def _hub_cloud(rng, motifs=30):
+    """Motifs of a tight cluster of 7 points ringed by the 12 vertices of an
+    icosahedron of radius 3: each vertex's 6 nearest neighbours are the
+    cluster (the vertices lie 3.15 apart), so every cluster point is named
+    by 12 vertices and 6 cluster mates, 18 in all."""
+    phi = (1 + 5 ** 0.5) / 2
+    ico = np.array([[0, s1, s2 * phi] for s1 in (-1, 1) for s2 in (-1, 1)], float)
+    ico = np.concatenate([np.roll(ico, r, axis=1) for r in range(3)])
+    ico *= 3.0 / np.linalg.norm(ico[0])
+    out = [c + np.concatenate([rng.normal(0, 0.01, (7, 3)), ico])
+           for c in 50.0 * np.arange(motifs)[:, None] * [1.0, 0.0, 0.0]]
+    return np.concatenate(out).astype(np.float32)
+
+
+def test_overflow_flag_is_read_once_per_build(monkeypatch):
+    """``point_cloud_laplacian`` records the overflow decision as a Python
+    bool; ``laplacian_rmatvec`` then reads nothing back from the tensors."""
+    rng = np.random.default_rng(3)
+    g = np.stack(np.meshgrid(np.arange(10), np.arange(10), np.arange(6)), -1).reshape(-1, 3)
+    lattice = (g + rng.normal(0, 0.05, g.shape)).astype(np.float32)
+    flags = []
+    for cloud in (_hub_cloud(rng), lattice):
+        n = len(cloud)
+        L = tlap.point_cloud_laplacian(torch.as_tensor(cloud), torch.ones(n, dtype=torch.bool),
+                                       6, 1e-6)
+        assert isinstance(L.t_overflow_any, bool)
+        assert L.t_overflow_any == bool(L.t_overflow.any())
+        xt = torch.as_tensor(rng.normal(size=(1, n, 3)).astype(np.float32))
+        want = tsp.laplacian_rmatvec(L, xt)
+
+        def no_read(*_):
+            raise AssertionError("host read of a tensor inside laplacian_rmatvec")
+
+        with monkeypatch.context() as mp:
+            for name in ("__bool__", "item", "tolist"):
+                mp.setattr(torch.Tensor, name, no_read)
+            got = tsp.laplacian_rmatvec(L, xt)
+        assert torch.equal(got, want)
+        flags.append(L.t_overflow_any)
+    assert flags == [True, False]  # the hubs overflow 2k = 12 slots, the lattice does not
+
+
+def test_converted_laplacian_gets_the_sorted_edges():
+    """A JAX-built ELL Laplacian carried across (it has no sorted edges)
+    gains them in ``convert``, with the overflow flag read there; its Lᵀx
+    equals the JAX package's, through the exact scatter."""
+    idx, w, x = _hub_graph(5, n=800)
+    deg = w.sum(1)
+    jt = jsp.build_transpose_ell(jnp.asarray(idx), jnp.asarray(w), kt=20)
+    Lj = jsp.ELLLaplacian(jnp.asarray(idx), jnp.asarray(w), jnp.asarray(deg),
+                          jnp.ones(len(idx)), t_idx=jt[0], t_w=jt[1], t_overflow=jt[2])
+    Lc = _carry(Lj)
+    assert Lc.t_overflow_any is True and Lc.tx_src is not None
+    _, _, _, src, dst, sw = tsp.transpose_ell_sorted(torch.as_tensor(idx)[None],
+                                                     torch.as_tensor(w)[None], kt=20)
+    assert torch.equal(Lc.tx_src, src) and torch.equal(Lc.tx_dst, dst)
+    assert torch.equal(Lc.tx_w, sw)
+    y = tsp.laplacian_rmatvec(Lc, torch.as_tensor(x)[None])[0].numpy()
+    np.testing.assert_allclose(y, np.asarray(jsp.laplacian_rmatvec(Lj, jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.gpu
 def test_band_matvec_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
