@@ -104,7 +104,31 @@ Phases, each printing lines with the elapsed seconds:
    ``mri_slices`` 8×64² on the kept mesh. Each drive of the path sets the
    counters to 0 just before and reads them just after. Then the image
    cast, the cell cast and ``grid_cast`` on a small scene on the card and
-   on the CPU: tri and counts equal, t within 1e-6 relative.
+   on the CPU: tri and counts equal, t within 1e-6 relative;
+15. wavefront and sharded casts on phase 14's scene: (a)
+   ``two_level_cast(wavefront=True)`` on phase 14e's grid and 10⁶-ray
+   bundle, first and steady call, seconds, Mrays/s, peak memory, host reads
+   and (from a third call with ``debug=True``) its rounds and blocks; the
+   same rays hit as in phase 14e's DDA, t equal bit for bit, tri equal but
+   where two triangles give the same t (recomputed for each such ray); the
+   same cast with ``tail_fallback=0`` (t bit for bit again), timed; (b)
+   with ``count_all=True`` on the first 65 536 rays, counts equal to phase
+   14e's DDA; (c) four ranks (as phase 11: NCCL with a card each on four
+   cards, else gloo on ``cuda:0``), each building the grids from the same
+   numpy scene and running ``sharded_image_cast`` at 1280×950 and with the
+   eye inside the canopy, ``sharded_cell_cast`` at 16 rays a cell side,
+   ``sharded_grid_cast`` on the primary grid with the 10⁶ rays (a rank's
+   part in one tile) and ``sharded_cast_rays`` on phase 7's mesh with
+   cast_scene's rays, twice each (the warm call reported) with the rank's
+   counters set to 0 just before each call, every result equal bit for bit
+   to the single-device call on the rank's card, ``mt_raycast`` launched
+   by the eye-inside residual pass and exactly once by the brute cast on
+   every rank, and on each rank ``mt_raycast`` against its plain version
+   (all four outputs bit for bit) on the inputs of those two launches:
+   the rank's part of cast_scene's rays against phase 7's mesh and its
+   pixels against the residual triangles; (d) the wavefront and ``sharded_grid_cast`` (the card's
+   ranks against 4 gloo ranks on the CPU) on phase 14's small scene: tri
+   and counts equal, t within 1e-6 relative.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -1207,6 +1231,32 @@ def raycast_path(tr, tmr, rg, vm, mt, pts, cfg, seed: int) -> dict:
     return out
 
 
+def bench_views(mesh):
+    """The bench scene's views (bench.py:364-470): the mesh's centre, the
+    pinhole eye at centre + (0, -30, 18) m, up +z (tensors on the card),
+    and the sun direction (0.3, 0.2, -0.93), normalised (numpy)."""
+    import numpy as np
+    import torch
+
+    center = mesh.vertices.mean(dim=0)
+    eye = center + torch.tensor([0.0, -30.0, 18.0], device=center.device)
+    zup = torch.tensor([0.0, 0.0, 1.0], device=center.device)
+    direction = np.array([0.3, 0.2, -0.93], np.float32)
+    return center, eye, zup, direction / np.linalg.norm(direction)
+
+
+def random_rays(mesh, n: int, seed: int, margin: float):
+    """``n`` rays (numpy float32) from points drawn uniformly in the mesh's
+    box grown by ``margin`` m, along unit normal draws, from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v = mesh.vertices.cpu().numpy()
+    o = rng.uniform(v.min(0) - margin, v.max(0) + margin, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return o, d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
 def f64_hits(mt, o, d, mesh, chunk: int = 16):
     """Closest t and crossing count of rays against every triangle of the
     mesh in float64 arithmetic (Möller–Trumbore as the casters compute
@@ -1313,12 +1363,10 @@ def raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray: dict, cfg) -> d
     if n_tri < tr.GRID_TRIANGLES:
         fail(f"the bench scene kept {n_tri} triangles, fewer than {tr.GRID_TRIANGLES}")
     out.update(n_raw=n_raw, n_tri=n_tri)
-    center = mesh.vertices.mean(dim=0)
-    zup = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+    center, eye, zup, direction = bench_views(mesh)
 
     # (a) the pinhole cast at 1280x950, fov 60, eye = center + (0, -30, 18)
     W, H = 1280, 950
-    eye = center + torch.tensor([0.0, -30.0, 18.0], device="cuda")
     for label, m in (("kept", mesh), ("raw", raw)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1387,8 +1435,6 @@ def raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray: dict, cfg) -> d
     del grid, h
 
     # (d) the cell cast along (0.3, 0.2, -0.93), 16 rays a cell side
-    direction = np.array([0.3, 0.2, -0.93], np.float32)
-    direction /= np.linalg.norm(direction)
     t = time.perf_counter()
     sgrid = rg.build_ray_grid(mesh.vertices, mesh.triangles, direction)
     sbuild = time.perf_counter() - t
@@ -1425,15 +1471,8 @@ def raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray: dict, cfg) -> d
         f"cap {prim.cap}, {prim.n_occupied} occupied, residual {prim.n_residual}"
         + (f"; sub {grid3.sub.nx}x{grid3.sub.ny}x{grid3.sub.nz}, cap {grid3.sub.cap}"
            if two else ""))
-    rng = np.random.default_rng(0)
     n_bundle = 1_000_000
-    vtx = mesh.vertices.cpu().numpy()
-    blo, bhi = vtx.min(0), vtx.max(0)
-    o_b = torch.as_tensor(rng.uniform(blo - 2, bhi + 2, (n_bundle, 3)).astype(np.float32),
-                          device="cuda")
-    d_np = rng.normal(size=(n_bundle, 3)).astype(np.float32)
-    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
-    d_b = torch.as_tensor(d_np, device="cuda")
+    o_b, d_b = (torch.as_tensor(x, device="cuda") for x in random_rays(mesh, n_bundle, 0, 2.0))
     torch.cuda.reset_peak_memory_stats()
     drive("two_level_cast 1e6 rays first",
           lambda: g3.two_level_cast(grid3, o_b, d_b, ray_tile=DDA_RAY_TILE), n_bundle)
@@ -1456,7 +1495,10 @@ def raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray: dict, cfg) -> d
     out["grid3d"] = dict(build_s=build3, two_level=two, peak_gib=peak,
                          first_s=out["s"]["two_level_cast 1e6 rays first"],
                          steady_s=out["s"]["two_level_cast 1e6 rays steady"])
-    del grid3, hb, o_b, d_b
+    # phase 15 casts the same bundle through the wavefront and the sharded casts
+    out["bundle"] = dict(mesh=mesh, grid3=grid3, o=o_b, d=d_b, dda=hb, dda_count_all=hc,
+                         eye=eye, center=center, zup=zup, direction=direction)
+    del hb
 
     # (f) the entry points that reach the grid on this mesh
     tr.clear_grid_cache()
@@ -1510,11 +1552,7 @@ def raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray: dict, cfg) -> d
     small = vm.simplify_mesh(raw, target_triangles=8000)
     small_cpu = TriMesh(small.vertices.cpu(), small.triangles.cpu())
     cmp = {}
-    rng = np.random.default_rng(1)
-    vs = small_cpu.vertices.numpy()
-    o_s = rng.uniform(vs.min(0) - 1, vs.max(0) + 1, (20_000, 3)).astype(np.float32)
-    d_s = rng.normal(size=(20_000, 3)).astype(np.float32)
-    d_s /= np.linalg.norm(d_s, axis=1, keepdims=True)
+    o_s, d_s = random_rays(small_cpu, 20_000, 1, 1.0)
     c_s = small_cpu.vertices.mean(dim=0)
     for dev, m in (("cuda", small), ("cpu", small_cpu)):
         cen = c_s.to(dev)
@@ -1541,7 +1579,355 @@ def raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray: dict, cfg) -> d
         if not equal or rel > 1e-6:
             fail(f"card = CPU: the {k} cast differs between the card and the CPU")
     out["card_cpu_t_rel"] = worst
+    out["small"] = dict(mesh=small, o=o_s, d=d_s)
     return out
+
+
+def small_sharded_rank(scene: dict, mesh=None) -> dict:
+    """The small scene's sharded cast (phase 15d): ``sharded_grid_cast``
+    with every crossing counted, on this rank's device."""
+    import torch
+
+    from pyqsm_tpu_torch.ops import grid3d as g3
+    from pyqsm_tpu_torch.parallel import raycast as pr
+
+    dev = mesh.device
+    g = g3.build_grid3d(torch.as_tensor(scene["vertices"], device=dev),
+                        torch.as_tensor(scene["triangles"], device=dev))
+    return pr.sharded_grid_cast(mesh, g, scene["o"], scene["d"], count_all=True)
+
+
+def raycast_rank(scene: dict, mesh=None) -> dict:
+    """One rank of phase 15c (every rank gets the same scene as numpy
+    arrays and builds its grids on the host, as the single device does):
+    each sharded cast twice (the second, warm, reported) with this rank's
+    launch counters set to 0 just before each call and read just after,
+    then the single-device call of the same cast on this rank's device,
+    which both calls must equal bit for bit. ``mt_raycast`` is held
+    against its plain version (``mt_bitwise``) on the rank's inputs of its
+    two launches, outside the counted calls. Then the small scene's sharded
+    cast of phase 15d."""
+    import torch
+
+    from pyqsm_tpu_torch.ops import band_matvec as bm
+    from pyqsm_tpu_torch.ops import grid3d as g3
+    from pyqsm_tpu_torch.ops import mt_raycast as mt
+    from pyqsm_tpu_torch.ops import raygrid as rg
+    from pyqsm_tpu_torch.ops import raytrace as tr
+    from pyqsm_tpu_torch.parallel import raycast as pr
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"  # a rehearsal on the CPU runs the same body
+
+    def on(x):
+        return torch.as_tensor(x, device=dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    out = dict(rank=mesh.rank, device=str(dev), backend=mesh.backend, world=mesh.size, casts={})
+    counts = {k: 0 for k in launch_counts(bm, mt)}
+
+    def drive(name, fn, single, rays):
+        runs = []
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(2):
+            sync()
+            zero_launches(bm, mt)
+            syncs = g3.SYNCS
+            t0 = time.perf_counter()
+            r = fn()
+            sync()
+            runs.append((r, time.perf_counter() - t0, launch_counts(bm, mt), g3.SYNCS - syncs))
+        for _, _, n, _ in runs:
+            for k, v in n.items():
+                counts[k] += v
+        ref = single()
+        equal = [all(torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+                     for a, b in zip(r, ref)) for r, _, _, _ in runs]
+        (_, first_s, first_n, _), (_, s, n, syncs) = runs
+        out["casts"][name] = dict(s=s, first_s=first_s, mrays_s=rays / s / 1e6,
+                                  launches=n["mt_raycast"], first_launches=first_n["mt_raycast"],
+                                  host_reads=syncs, equal=all(equal),
+                                  peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                                  if cuda else 0.0)
+
+    out["mt_plain"] = {}
+
+    def plain_check(name, o, d, vertices, triangles):
+        """``mt_raycast`` against its plain version on one launch's inputs."""
+        if not cuda:
+            return
+        ok, first = mt_bitwise(mt, o, d, vertices, triangles)
+        pl = mt.plan(o.shape[0], triangles.shape[0],
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
+        out["mt_plain"][name] = dict(rays=o.shape[0], triangles=triangles.shape[0],
+                                     slices=pl.slices, bitwise=ok, first_diff=first)
+
+    v, f = on(scene["vertices"]), on(scene["triangles"])
+    eye, center, zup = on(scene["eye"]), on(scene["center"]), on(scene["zup"])
+    W, H = scene["image_wh"]
+    grid = rg.build_image_grid(v, f, eye, center, zup, 60.0, W, H)
+    drive(f"sharded_image_cast {W}x{H}", lambda: pr.sharded_image_cast(mesh, grid),
+          lambda: rg.image_cast(grid), W * H)
+    del grid
+    W, H = scene["inside_wh"]
+    grid = rg.build_image_grid(v, f, center, center + on(scene["inside_dir"]), zup, 90.0, W, H)
+    out["inside_residual"] = int((grid.residual >= 0).sum())
+    drive("sharded_image_cast eye inside", lambda: pr.sharded_image_cast(mesh, grid),
+          lambda: rg.image_cast(grid), W * H)
+    # the rank's launch of the residual pass: its pixels (pr._pixel_cast's
+    # part) against the residual triangles
+    o_px, d_px, v_res, f_res, _ = rg._residual_scene(grid)
+    k, p, _ = pr._axis(mesh, "points")
+    plain_check("residual pass", pr._padded_part(o_px, W * H, k, p, 0.0).contiguous(),
+                pr._padded_part(d_px, W * H, k, p, 1.0).contiguous(), v_res, f_res)
+    del grid, o_px, d_px
+    direction, rpc = scene["direction"], scene["rays_per_cell_side"]
+    sgrid = rg.build_ray_grid(v, f, direction)
+    drive(f"sharded_cell_cast rpc {rpc}",
+          lambda: pr.sharded_cell_cast(mesh, sgrid, direction, rays_per_cell_side=rpc),
+          lambda: rg.cell_cast_parallel(sgrid, direction, rays_per_cell_side=rpc),
+          sgrid.nx * sgrid.ny * rpc * rpc)
+    del sgrid
+    g = g3.build_grid3d_two_level(v, f)
+    prim = g.primary if isinstance(g, g3.TwoLevelGrid) else g
+    o, d = scene["o"], scene["d"]
+    n = o.shape[0]
+    # the single-device reference in tiles of a rank's share: a tile
+    # changes no ray's result, and four one-tile casts of 10⁶ rays would
+    # not fit on one card beside the ranks' own
+    drive(f"sharded_grid_cast {n} rays",
+          lambda: pr.sharded_grid_cast(mesh, prim, o, d, ray_tile=DDA_RAY_TILE),
+          lambda: g3.grid_cast(prim, on(o), on(d), ray_tile=-(-n // mesh.size)), n)
+    del g, prim
+    v7, f7 = on(scene["vertices7"]), on(scene["triangles7"])
+    o7, d7 = scene["o7"], scene["d7"]
+    drive(f"sharded_cast_rays {o7.shape[0]} rays",
+          lambda: pr.sharded_cast_rays(mesh, o7, d7, v7, f7),
+          lambda: tr.cast_rays(on(o7), on(d7), v7, f7, backend="kernel"), o7.shape[0])
+    part = pr._ray_part(o7.shape[0], mesh, "points", "sharded_cast_rays")
+    plain_check("sharded_cast_rays", on(o7[part]).contiguous(), on(d7[part]).contiguous(), v7, f7)
+    out["counts"] = counts
+    out["small"] = small_sharded_rank(scene["small"], mesh=mesh)
+    return out
+
+
+def wavefront_path(bm, mt, g3, rgp: dict) -> dict:
+    """Phase 15 (a)-(b): the wavefront caster on phase 14e's grid and
+    bundle, held against its DDA hits. Each drive sets the launch counters
+    to 0 just before and reads them just after."""
+    import io
+
+    import torch
+
+    st = rgp["bundle"]
+    grid3, o_b, d_b, hb, hc = st["grid3"], st["o"], st["d"], st["dda"], st["dda_count_all"]
+    out = dict(counts={k: 0 for k in launch_counts(bm, mt)}, s={}, reads={})
+
+    def drive(name, fn, rays):
+        torch.cuda.synchronize()
+        zero_launches(bm, mt)
+        syncs = g3.SYNCS
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        n = launch_counts(bm, mt)
+        for k, v in n.items():
+            out["counts"][k] += v
+        out["s"][name], out["reads"][name] = sec, g3.SYNCS - syncs
+        log("wavefront", f"{name}: {sec:.4f}s, {rays / sec / 1e6:.3f} Mrays/s; launches {n}; "
+            f"host reads {g3.SYNCS - syncs}")
+        return r
+
+    # (a) the wavefront on the 10⁶-ray bundle at its defaults
+    n_b = o_b.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    first = drive("two_level_cast(wavefront=True) 1e6 rays first",
+                  lambda: g3.two_level_cast(grid3, o_b, d_b, wavefront=True), n_b)
+    hw = drive("two_level_cast(wavefront=True) 1e6 rays steady",
+               lambda: g3.two_level_cast(grid3, o_b, d_b, wavefront=True), n_b)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        g3.two_level_cast(grid3, o_b, d_b, wavefront=True, debug=True)
+    rounds = [ln for ln in buf.getvalue().splitlines() if ln.startswith("#")]
+    for ln in rounds:
+        log("wavefront", f"debug call: {ln[2:]}")
+    same_bits = all(torch.equal(a, b) for a, b in zip(first, hw))
+    hit, hit_d = torch.isfinite(hw.t), torch.isfinite(hb.t)
+    diff = hit_d & (hw.tri != hb.tri)
+    rows = torch.nonzero(diff)[:, 0]
+    prim = grid3.primary if isinstance(grid3, g3.TwoLevelGrid) else grid3
+
+    def t_of(tri):
+        """t of each differing ray against one triangle, by the casts' arithmetic."""
+        k = tri[rows].long()
+        o, d = o_b[rows], d_b[rows]
+        return mt.mt_components(tuple(o[:, a] for a in range(3)), tuple(d[:, a] for a in range(3)),
+                                tuple(prim.v0[k, a] for a in range(3)),
+                                tuple(prim.e1[k, a] for a in range(3)),
+                                tuple(prim.e2[k, a] for a in range(3)),
+                                torch.ones_like(k, dtype=torch.bool))[0]
+
+    ties = bool(torch.equal(t_of(hw.tri), hb.t[rows]) and torch.equal(t_of(hb.tri), hb.t[rows])) \
+        if len(rows) else True
+    check = dict(same_hits=bool(torch.equal(hit, hit_d)), t_bitwise=bool(torch.equal(hw.t, hb.t)),
+                 tri_diff=int(diff.sum()), ties_same_t=ties, first_equals_steady=same_bits,
+                 hits=int(hit.sum()))
+    log("wavefront", f"against phase 14e's DDA on the same {n_b} rays: {check}; peak "
+        f"max_memory_allocated {peak:.3f} GiB")
+    if not (check["same_hits"] and check["t_bitwise"] and ties and same_bits):
+        fail(f"the wavefront disagrees with the DDA on the 10⁶-ray bundle: {check}")
+    # the same cast with every straggler kept on the rounds: the DDA tail
+    # fallback is a host-stepped loop in the port
+    h0 = drive("two_level_cast(wavefront=True, tail_fallback=0) 1e6 rays",
+               lambda: g3.two_level_cast(grid3, o_b, d_b, wavefront=True, tail_fallback=0), n_b)
+    check["no_tail_t_bitwise"] = bool(torch.equal(h0.t, hb.t))
+    if not check["no_tail_t_bitwise"]:
+        fail("the wavefront without its tail fallback disagrees with the DDA")
+    del h0
+    out["a"] = dict(check, peak_gib=peak, rounds=rounds,
+                    first_s=out["s"]["two_level_cast(wavefront=True) 1e6 rays first"],
+                    steady_s=out["s"]["two_level_cast(wavefront=True) 1e6 rays steady"],
+                    reads=out["reads"]["two_level_cast(wavefront=True) 1e6 rays steady"],
+                    no_tail_s=out["s"]["two_level_cast(wavefront=True, tail_fallback=0) 1e6 rays"],
+                    no_tail_reads=out["reads"][
+                        "two_level_cast(wavefront=True, tail_fallback=0) 1e6 rays"])
+
+    # (b) every crossing counted, the first 65 536 rays
+    n_chk = hc.t.shape[0]
+    hwc = drive(f"two_level_cast(wavefront=True, count_all=True) {n_chk} rays",
+                lambda: g3.two_level_cast(grid3, o_b[:n_chk], d_b[:n_chk], wavefront=True,
+                                          count_all=True), n_chk)
+    cnt_equal = bool(torch.equal(hwc.count, hc.count))
+    log("wavefront", f"count_all against phase 14e's DDA count_all: counts equal {cnt_equal}, "
+        f"t bit for bit {bool(torch.equal(hwc.t, hc.t))}, {int(hwc.count.sum())} crossings")
+    if not cnt_equal:
+        fail("the wavefront's count_all counts differ from the DDA's")
+    out["b"] = dict(s=out["s"][f"two_level_cast(wavefront=True, count_all=True) {n_chk} rays"],
+                    reads=out["reads"][f"two_level_cast(wavefront=True, count_all=True) {n_chk} rays"],
+                    counts_equal=cnt_equal)
+    return out
+
+
+def raycast_scene(st: dict, mesh7, shapes: dict, small: dict) -> dict:
+    """Phase 15c's inputs as numpy arrays, the same for every rank: phase
+    14's kept mesh, cameras, sun direction and 10⁶-ray bundle, phase 7's
+    mesh and cast_scene's rays, the small scene and its rays."""
+    import numpy as np
+
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else x
+
+    o7, d7 = shapes["cast_scene"]
+    sm = small["mesh"]
+    scene = dict(vertices=host(st["mesh"].vertices), triangles=host(st["mesh"].triangles),
+                 eye=host(st["eye"]), center=host(st["center"]), zup=host(st["zup"]),
+                 image_wh=(1280, 950), inside_wh=(640, 480),
+                 inside_dir=np.array([1.0, 0.3, 0.1], np.float32), direction=st["direction"],
+                 rays_per_cell_side=16, o=host(st["o"]), d=host(st["d"]),
+                 vertices7=host(mesh7.vertices), triangles7=host(mesh7.triangles), o7=host(o7),
+                 d7=host(d7), small=dict(vertices=host(sm.vertices), triangles=host(sm.triangles),
+                                         o=small["o"], d=small["d"]))
+    return scene
+
+
+def sharded_raycast_path(bm, mt, launch, scene: dict) -> dict:
+    """Phase 15c: the four sharded casts over ``SHARDED_RANKS`` spawned
+    ranks (NCCL with one card a rank where the machine has that many, else
+    gloo with every rank on ``cuda:0``), each equal on every rank to the
+    single-device call; ``mt_raycast`` launched once per rank by
+    ``sharded_cast_rays`` and by the eye-inside image cast's residual pass,
+    and equal to its plain version on each rank's inputs of both."""
+    import torch
+
+    out = dict(counts={k: 0 for k in launch_counts(bm, mt)})
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= SHARDED_RANKS else "gloo"
+    log("sharded_raycast", f"{SHARDED_RANKS} ranks, backend {backend}, "
+        f"{'one card a rank' if backend == 'nccl' else 'every rank on cuda:0'}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = launch(raycast_rank, SHARDED_RANKS, backend, args=(scene,),
+                   device="cuda" if backend == "nccl" else "cuda:0", timeout=BUDGET_S)
+    launch_s = time.perf_counter() - t
+    bad = []
+    for r in ranks:
+        for name, c in r["casts"].items():
+            log("sharded_raycast", f"rank {r['rank']} ({r['device']}, {r['backend']}) {name}: warm "
+                f"{c['s']:.4f}s ({c['mrays_s']:.3f} Mrays/s; first {c['first_s']:.4f}s), "
+                f"mt_raycast launches {c['launches']} (first call {c['first_launches']}), "
+                f"host reads {c['host_reads']}, peak {c['peak_gib']:.3f} GiB, both calls equal "
+                f"the single-device call bit for bit {c['equal']}")
+            if not c["equal"]:
+                bad.append((r["rank"], name))
+        for k, v in r["counts"].items():
+            out["counts"][k] += v
+        for name, c in r["mt_plain"].items():
+            log("sharded_raycast", f"rank {r['rank']} mt_raycast against its plain version on "
+                f"the {name} launch's inputs, {c['rays']} rays x {c['triangles']} triangles "
+                f"({c['slices']} slices): all four outputs bit for bit {c['bitwise']}")
+            if not c["bitwise"]:
+                bad.append((r["rank"], f"mt_raycast {name}: {c['first_diff']} differs"))
+    log("sharded_raycast", f"launch and all ranks in {launch_s:.2f}s; eye-inside residual "
+        f"{ranks[0]['inside_residual']} triangles")
+    if bad:
+        fail(f"sharded casts differ from the single-device call, or mt_raycast from its plain "
+             f"version: {bad}")
+    if any(len(r["mt_plain"]) != 2 for r in ranks):
+        fail("a rank did not hold both of its mt_raycast launches against the plain version")
+    for r in ranks:
+        c = r["casts"]
+        inside = c["sharded_image_cast eye inside"]
+        brute = [v for k, v in c.items() if k.startswith("sharded_cast_rays")][0]
+        if inside["launches"] < 1 or inside["first_launches"] < 1:
+            fail(f"rank {r['rank']}: the eye-inside sharded cast did not launch mt_raycast")
+        if brute["launches"] != 1 or brute["first_launches"] != 1:
+            fail(f"rank {r['rank']}: sharded_cast_rays launched mt_raycast "
+                 f"{brute['launches']} times, not once")
+    out.update(backend=backend, launch_s=launch_s, ranks=ranks)
+    return out
+
+
+def small_card_cpu(g3, launch, small: dict, card_ranks: list) -> float:
+    """Phase 15d: on the small scene the wavefront (one device) and the
+    sharded grid cast (phase 15c's ranks on the card, 4 gloo ranks on the
+    CPU) on the card and on the CPU: tri and counts equal, t within 1e-6
+    relative. Returns the largest relative t difference."""
+    import torch
+
+    sm = small["mesh"]
+    scene = dict(vertices=sm.vertices.cpu().numpy(), triangles=sm.triangles.cpu().numpy(),
+                 o=small["o"], d=small["d"])
+    cpu_ranks = launch(small_sharded_rank, SHARDED_RANKS, "gloo", args=(scene,), device="cpu",
+                       timeout=BUDGET_S)
+    wf = {}
+    for key, (v, f) in (("card", (sm.vertices, sm.triangles)),
+                        ("cpu", (sm.vertices.cpu(), sm.triangles.cpu()))):
+        g = g3.build_grid3d(v, f)
+        wf[key] = g3.grid_cast_wavefront(g, torch.as_tensor(small["o"], device=v.device),
+                                         torch.as_tensor(small["d"], device=v.device),
+                                         count_all=True)
+    worst = 0.0
+    pairs = [("wavefront", wf["card"], wf["cpu"])] + [
+        (f"sharded_grid_cast rank {i}", r["small"], c) for i, (r, c) in
+        enumerate(zip(card_ranks, cpu_ranks))]
+    for label, a, b in pairs:
+        ta, tb = a.t.cpu(), b.t.cpu()
+        fin = torch.isfinite(tb)
+        equal = torch.equal(a.tri.cpu(), b.tri.cpu()) and torch.equal(a.count.cpu(), b.count.cpu()) \
+            and torch.equal(torch.isfinite(ta), fin)
+        rel = float(((ta - tb).abs() / tb.abs())[fin].max()) if bool(fin.any()) else 0.0
+        worst = max(worst, rel)
+        log("wavefront", f"card = CPU, {sm.n_triangles()} triangles, {label}: tri and counts "
+            f"equal {equal}, {int(fin.sum())} hits, t max rel {rel:.3e}")
+        if not equal or rel > 1e-6:
+            fail(f"card = CPU: {label} differs between the card and the CPU")
+    return worst
 
 
 def main() -> None:
@@ -1803,10 +2189,20 @@ def main() -> None:
     # cast and the 3D grid on the canopy mesh decimated to 400 000 triangles
     torch.cuda.empty_cache()
     rgp = raycast_grid_path(bm, mt, tr, tmr, rg, g3, vm, TriMesh, ray, cfg)
+
+    # 15. the wavefront caster and the sharded casts on phase 14's scene
+    torch.cuda.empty_cache()
+    wfp = wavefront_path(bm, mt, g3, rgp)
+    scene = raycast_scene(rgp["bundle"], ray["mesh"], shapes, rgp["small"])
+    rgp["bundle"].clear()  # phase 14's grid and DDA hits: the ranks share the card
+    shr = sharded_raycast_path(bm, mt, launch, scene)
+    wfp["card_cpu_t_rel"] = small_card_cpu(g3, launch, rgp["small"], shr["ranks"])
     paths = {"main (phase 5)": main_counts, "canopy (13a)": cp["counts"],
              "single-tree skeletonize (13b)": single["skeletonize"]["launches"],
              "single-tree canopy_metrics (13b)": single["canopy_metrics"]["launches"],
-             "raycast grid (14)": rgp["path_launches"]}
+             "raycast grid (14)": rgp["path_launches"],
+             "wavefront (15a-b)": wfp["counts"],
+             "sharded raycast, 4 ranks (15c)": shr["counts"]}
 
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]
@@ -1840,7 +2236,13 @@ def main() -> None:
              edge_cases=len(edges),
              raycast_grid={k: rgp[k] for k in ("n_raw", "n_tri", "image_kept", "image_raw",
                                                "cell", "grid3d", "residual_launches",
-                                               "card_cpu_t_rel")}),
+                                               "card_cpu_t_rel")},
+             wavefront={k: wfp[k] for k in ("a", "b", "card_cpu_t_rel")},
+             sharded=dict(backend=shr["backend"], ranks=SHARDED_RANKS,
+                          launches_per_rank={name: [r["casts"][name]["launches"]
+                                                    for r in shr["ranks"]]
+                                             for name in shr["ranks"][0]["casts"]},
+                          plain_checks_per_rank=[r["mt_plain"] for r in shr["ranks"]])),
         dict(name="band_matvec_bf16", route="cuda", source="pyqsm_tpu_torch/csrc/band_matvec_bf16.cu",
              replaces="pyqsm_tpu/ops/pallas_kernels.py:183", launches=claim["launches"],
              max_abs_err=max(bf["claim"]["max_abs_err"], bf["c128"]["max_abs_err"]),

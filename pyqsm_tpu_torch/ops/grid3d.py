@@ -1,6 +1,6 @@
 """3D uniform-grid acceleration for general ray bundles (counterpart of
-``pyqsm_tpu/ops/grid3d.py``, its DDA caster; the wavefront caster is not
-ported yet and raises).
+``pyqsm_tpu/ops/grid3d.py``): the build, the DDA caster and the wavefront
+caster.
 
 The build is host numpy (one sort), as in the JAX package: every triangle
 is registered in all cells its AABB touches, the cell cap is the
@@ -8,20 +8,35 @@ is registered in all cells its AABB touches, the cell cap is the
 list that every ray tests, a Chebyshev skip table lets rays jump through
 empty space, and each occupied cell's triangles are packed into one row.
 
-The cast is plain torch on the caller's device: each ray tile marches a
-3-DDA in a host loop (a skip phase through empty cells, then one
-Möller–Trumbore batch against the current cell's row). A ray retires once
-its best hit lies inside the current cell (``count_all=False``); crossings
-are counted in the cell that holds the hit point, with the build's
-floor arithmetic. The host reads the alive count every ``_CHECK_EVERY``
-steps and compacts the tile's working set to the live rays: a dead ray's
-update is masked, so neither changes a result. The cell arithmetic rounds
-as XLA's CPU code does (``o + t·d`` fused, ``x / cell`` as
-``x · f32(1/cell)``), so the crossings land in the same cells.
+The casts are plain torch on the caller's device.
+
+- ``grid_cast``, the DDA: each ray tile marches a 3-DDA in a host loop (a
+  skip phase through empty cells, then one Möller–Trumbore batch against
+  the current cell's row). A ray retires once its best hit lies inside
+  the current cell (``count_all=False``). The host reads the alive count
+  every ``_CHECK_EVERY`` steps and compacts the tile's working set to the
+  live rays: a dead ray's update is masked, so neither changes a result.
+- ``grid_cast_wavefront``, cell-major: each round enumerates the occupied
+  cells every live ray visits next (``_enumerate_visits``), sorts the
+  (ray, cell) pairs by cell into blocks that never span two cells
+  (``_sort_pairs``) and tests each block against its one cell's row
+  (``_mt_blocks``), then folds the round into the bundle's best hits and
+  retires the rays whose closest hit lies inside the covered interval
+  (``_merge_round``). Two host reads a round (the live block count and
+  the frontier) size the next; the rounds' schedule is the JAX package's,
+  since it decides which pairs share a block and so which of two triangles
+  at equal t wins.
+
+Crossings are counted in the cell that holds the hit point, with the
+build's floor arithmetic. The cell arithmetic rounds as XLA's CPU code
+does (``o + t·d`` fused, ``x / cell`` for the static cell as
+``x · f32(1/cell)``), so the crossings land in the same cells. ``SYNCS``
+counts every host read of the casts' loops.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -36,14 +51,11 @@ from pyqsm_tpu_torch.ops.sampling import nonzero_rows
 _CHECK_EVERY = 4
 # below this many live rays a tile's working set is not compacted further
 _COMPACT_MIN = 4096
-# host reads of the DDA's loop tests (alive counts, skip-phase flags),
-# counted so a caller can weigh the host loop's syncs
+# host reads of the casts' loop tests (the DDA's alive counts and skip-phase
+# flags, the wavefront's walk tests, block counts and frontier sizes),
+# counted so a caller can weigh the host loops' syncs
 SYNCS = 0
-
-# ROADMAP item that ports ``grid_cast_wavefront`` and its helpers
-_WAVEFRONT_TODO = ("the wavefront caster (grid_cast_wavefront, pyqsm_tpu/ops/grid3d.py:789-1308, "
-                   "1341-1537) is not ported yet: ROADMAP §1 item 1, the wavefront and "
-                   "parallel/raycast.py")
+_INT_MAX = int(np.iinfo(np.int32).max)
 
 
 class Grid3D(NamedTuple):
@@ -338,17 +350,20 @@ def _scatter_sub_hits(a: Hits, bs_t, bs_tri, bs_uv, bs_count, safe, live,
 
 def two_level_cast(grid, origins: torch.Tensor, dirs: torch.Tensor, wavefront: bool = False,
                    **cast_kw) -> Hits:
-    """``grid_cast`` against a :class:`Grid3D` or a :class:`TwoLevelGrid`.
-    The sub cast takes only the rays whose segment touches the sub grid's
-    AABB (and, for closest hits, enter it before their primary hit): the
-    whole bundle when that is half of it or more, else a front-packed
-    sub-bundle of a power-of-two capacity whose results are scattered back.
-    ``wavefront=True`` raises: the wavefront caster is not ported."""
-    if wavefront:
-        raise NotImplementedError(f"two_level_cast(wavefront=True): {_WAVEFRONT_TODO}")
+    """``grid_cast`` against a :class:`Grid3D` or a :class:`TwoLevelGrid`
+    (``wavefront=True``: ``grid_cast_wavefront`` for both levels). The sub
+    cast takes only the rays whose segment touches the sub grid's AABB
+    (and, for closest hits, enter it before their primary hit): the whole
+    bundle when that is half of it or more, else a front-packed sub-bundle
+    of a power-of-two capacity whose results are scattered back."""
+    caster = grid_cast_wavefront if wavefront else grid_cast
     if isinstance(grid, Grid3D):
-        return grid_cast(grid, origins, dirs, **cast_kw)
-    a = grid_cast(grid.primary, origins, dirs, **cast_kw)
+        return caster(grid, origins, dirs, **cast_kw)
+    debug = cast_kw.get("debug", False)
+    t0 = time.perf_counter()
+    a = caster(grid.primary, origins, dirs, **cast_kw)
+    if debug:
+        print(f"# two_level primary dt={time.perf_counter() - t0:.3f}s", flush=True)
     sub = grid.sub
     lo = sub.lo
     hi = lo + torch.tensor([sub.nx, sub.ny, sub.nz], dtype=torch.float32,
@@ -361,10 +376,13 @@ def two_level_cast(grid, origins: torch.Tensor, dirs: torch.Tensor, wavefront: b
         touch = touch & (t_enter_sub <= a.t + 1e-4)
     r = origins.shape[0]
     m = int(touch.sum())  # host read: the cull count sizes the sub bundle
+    if debug:
+        print(f"# two_level sub cull m={m}/{r} (sub {sub.nx}x{sub.ny}x{sub.nz} occ "
+              f"{sub.n_occupied})", flush=True)
     if m == 0:
         return a
     if m >= r // 2:
-        b = grid_cast(sub, origins, dirs, **cast_kw)
+        b = caster(sub, origins, dirs, **cast_kw)
         b = b._replace(tri=torch.where(b.tri >= 0, grid.sub_tri_ids[b.tri.clamp(min=0).long()],
                                        b.tri))
         return merge_hits(a, b)
@@ -375,13 +393,8 @@ def two_level_cast(grid, origins: torch.Tensor, dirs: torch.Tensor, wavefront: b
     safe = sel.clamp(min=0).long()
     live = sel >= 0
     # padding rows alias ray 0; their results are dropped by the scatter
-    bs = grid_cast(sub, origins[safe], dirs[safe], **cast_kw)
+    bs = caster(sub, origins[safe], dirs[safe], **cast_kw)
     return _scatter_sub_hits(a, bs.t, bs.tri, bs.uv, bs.count, safe, live, grid.sub_tri_ids)
-
-
-def grid_cast_wavefront(grid: Grid3D, origins: torch.Tensor, dirs: torch.Tensor, **kw) -> Hits:
-    """The JAX package's cell-major caster: not ported yet, raises."""
-    raise NotImplementedError(f"grid_cast_wavefront: {_WAVEFRONT_TODO}")
 
 
 def _chebyshev_dt(occ3: np.ndarray, max_dist: int = 64) -> np.ndarray:
@@ -451,8 +464,8 @@ def _mt_batch_cells(o, d, rank, cell_rows, alive):
 def _floor_cell(x: torch.Tensor, top) -> torch.Tensor:
     """``clip(floor(x).astype(int32), 0, top)`` with XLA's saturating
     conversion (±inf to the int range's ends, NaN to 0)."""
-    f = torch.nan_to_num(torch.floor(x), nan=0.0).clamp(-1.0, 2.0 ** 30)
-    return f.to(torch.int32).clamp(min=0).minimum(top)
+    f = torch.nan_to_num(torch.floor(x), nan=0.0).clamp(-1.0, 2.0 ** 30).to(torch.int32)
+    return f.clamp(min=0).minimum(top) if isinstance(top, torch.Tensor) else f.clamp(0, top)
 
 
 def _closest_update(best_t, best_tri, best_uv, tt, u, v, slots):
@@ -645,6 +658,447 @@ def grid_cast(grid: Grid3D, origins: torch.Tensor, dirs: torch.Tensor, ray_tile:
     chunks = [one(origins[s:s + rays_per_dispatch], dirs[s:s + rays_per_dispatch])
               for s in range(0, r, rays_per_dispatch)]
     return Hits(*(torch.cat(x) for x in zip(*chunks)))
+
+
+# ---------------------------------------------------------------------------
+# the wavefront (cell-major) caster
+# ---------------------------------------------------------------------------
+
+
+def _enumerate_visits(origins, dirs, t_start, alive_in, c_start, lo, cell: float, nx: int, ny: int,
+                      nz: int, skip_tab, ray_tile: int, visits: int, max_steps: int,
+                      first_round: bool = True, it_budget: int | None = None, unroll: int = 8):
+    """March each ray from ``t_start`` and record up to ``visits`` occupied
+    cell ids: ``(vis [R, V] i32 (-1 pad), t_cov [R] — the march parameter
+    at the end of the recorded segment (inf once the ray left the grid),
+    more [R] — still inside the grid with cells left to visit, c_next
+    [R, 3] the resume cell, t_next [R] the resume parameter)``.
+
+    A resume round (``first_round=False``) walks on from the carried cell
+    ``c_start``, and ``t_start`` is the carried ``t_next``. One advance
+    records the ray's cell when it is occupied, then takes one DDA step or
+    jumps (skip - 1) minimum cell widths through verified-empty space. The
+    advance count is capped at ``it_budget`` (and at ``max_steps + visits``)
+    and tested every ``unroll`` advances, a host read each; a ray frozen by
+    the cap resumes next round. An advance leaves a ray whose quota is full
+    or that left the grid as it is, so the result of a ray does not depend
+    on the rays marched with it: groups of ``min(16, tiles)`` tiles of
+    ``ray_tile`` rays are marched together, as the JAX package's
+    ``lax.map`` batches them."""
+    global SYNCS
+    r = origins.shape[0]
+    dev = origins.device
+    dims = (nx, ny, nz)
+    top = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int32, device=dev)
+    cell32 = float(np.float32(cell))
+    inv_cell = float(np.float32(1.0 / cell))
+    # the JAX package adds a Python float product to lo: f32(dims·cell)
+    hi = lo + torch.tensor([np.float32(dims[a] * cell) for a in range(3)], device=dev)
+    it_cap = max_steps + visits if it_budget is None else min(it_budget, max_steps + visits)
+    group = ray_tile * min(16, -(-r // ray_tile))
+    outs = []
+    for r0 in range(0, r, group):
+        sl = slice(r0, r0 + group)
+        o = origins[sl].to(torch.float32)
+        d = dirs[sl].to(torch.float32)
+        ts = t_start[sl].to(torch.float32)
+        rt = o.shape[0]
+        inv = _inverse(d)
+        tmin_ax, tmax_ax = _slabs(o, d, inv, lo, hi)
+        t_enter = torch.maximum(torch.clamp(tmin_ax.amax(dim=1), min=0.0), ts)
+        t_exit_grid = tmax_ax.amin(dim=1)
+        alive = alive_in[sl] & (t_enter <= t_exit_grid)
+        if first_round:
+            c = _floor_cell((_fma((t_enter + 1e-6)[:, None], d, o) - lo) * inv_cell, top)
+        else:
+            c = torch.minimum(c_start[sl].to(torch.int32).clamp(min=0), top)
+        step = torch.sign(d).to(torch.int32)
+        min_td = torch.where(d != 0, cell32 * inv.abs(), torch.inf).amin(dim=1)
+        nrec = torch.zeros(rt, dtype=torch.int32, device=dev)
+        # [R, V + 1]: column V takes the writes of rays that record nothing
+        vis = torch.full((rt, visits + 1), -1, dtype=torch.int32, device=dev)
+        rows = torch.arange(rt, device=dev)
+        t_cur = t_enter
+        t_cov = torch.where(alive, t_enter, ts)
+
+        def dda_step(c, move):
+            """One DDA step for rays in ``move``, the first minimum's axis
+            on ties: (c', t_exit, stay_alive)."""
+            nb = _fma(torch.where(d >= 0, c + 1, c).float(), cell32, lo)
+            tm = torch.where(d != 0, (nb - o) * inv, torch.inf)
+            t_exit = torch.minimum(torch.minimum(tm[:, 0], tm[:, 1]), tm[:, 2])
+            mvx = (tm[:, 0] <= tm[:, 1]) & (tm[:, 0] <= tm[:, 2])
+            mvy = ~mvx & (tm[:, 1] <= tm[:, 2])
+            mv = torch.stack([mvx, mvy, ~mvx & ~mvy], 1)
+            c_new = c + torch.where(mv, step, 0)
+            oob = ((c_new < 0) | (c_new > top)).any(dim=1)
+            c_out = torch.where(move[:, None], torch.minimum(c_new.clamp(min=0), top), c)
+            return c_out, t_exit, ~(move & oob)
+
+        it = 0
+        while it < it_cap:
+            SYNCS += 1
+            if not bool((alive & (nrec < visits)).any()):
+                break
+            for _ in range(unroll):
+                act = alive & (nrec < visits)
+                cid = (c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]
+                k = torch.where(act, skip_tab[torch.where(act, cid, 0).long()], 0).to(torch.int32)
+                occ = act & (k == 0)
+                vis[rows, torch.where(occ, nrec, visits).long()] = torch.where(occ, cid, -1)
+                nrec = nrec + occ.to(torch.int32)
+                jump = act & (k >= 2)
+                t_jump = _fma((k - 1).float(), min_td, t_cur)
+                c_jump = _floor_cell((_fma(t_jump[:, None], d, o) - lo) * inv_cell, top)
+                c_step, t_exit, ok_step = dda_step(c, act & ~jump)
+                c = torch.where(act[:, None], torch.where(jump[:, None], c_jump, c_step), c)
+                t_cur = torch.where(jump, t_jump, torch.where(act, t_exit, t_cur))
+                # the recorded cell's exit closes the covered interval
+                t_cov = torch.where(occ, t_exit, t_cov)
+                alive = alive & ~((jump & (t_jump >= t_exit_grid)) | ~ok_step)
+            it += unroll
+        outs.append((vis[:, :visits], torch.where(alive, t_cov, torch.inf), alive, c, t_cur))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _sort_pairs(visit_cids: torch.Tensor, block: int, alive: torch.Tensor | None = None):
+    """Sort the (ray, visited cell) pairs cell-major (stable: a cell's pairs
+    keep ray order) and cut them into blocks of at most ``block`` pairs
+    that never span two cells. Returns (skeys, srays, blk_id, pos_in_blk,
+    live_pair, n_blk), ``n_blk`` the exact number of live blocks (a
+    0-dim tensor); dead pairs sort last under the key int32 max."""
+    r, v = visit_cids.shape
+    dev = visit_cids.device
+    if alive is not None:
+        visit_cids = torch.where(alive[:, None], visit_cids, -1)
+    keys = torch.where(visit_cids >= 0, visit_cids, _INT_MAX).reshape(-1)
+    ray_of = torch.arange(r, dtype=torch.int32, device=dev).repeat_interleave(v)
+    skeys, order = torch.sort(keys, stable=True)
+    srays = ray_of[order]
+    idx = torch.arange(r * v, dtype=torch.int32, device=dev)
+    first = torch.ones_like(skeys, dtype=torch.bool)
+    first[1:] = skeys[1:] != skeys[:-1]
+    seg_start = torch.cummax(torch.where(first, idx, -1), 0).values
+    first_blk = first | ((idx - seg_start) % block == 0)
+    blk_id = torch.cumsum(first_blk.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos_in_blk = idx - torch.cummax(torch.where(first_blk, idx, -1), 0).values
+    live_pair = skeys < _INT_MAX
+    n_blk = torch.where(live_pair, blk_id, -1).amax() + 1
+    return skeys, srays, blk_id, pos_in_blk, live_pair, n_blk
+
+
+def _mt_blocks(origins, dirs, skeys, srays, blk_id, pos_in_blk, live_pair, tri_of_slot, packed,
+               lo, cell_size: float, dims, block: int, nb_cap: int, n_blk: int,
+               cell_rank=None, cell_rows=None, packed_cells: bool = False):
+    """Möller–Trumbore over the live blocks of :func:`_sort_pairs`: each
+    block's one cell row against its rays, a dense [blocks, cap, block]
+    test, as many blocks a step as keep an intermediate within
+    ``raygrid._BLOCK_ELEMS`` elements (blocks are independent, so the step
+    changes no result). The ``nb_cap - n_blk`` blocks past the live ones
+    hold no pair and are not tested. Returns each ray's best of the round
+    (t, tri, u, v, count): the least t, the crossings summed, the winner
+    the lowest block slot among the pairs at that t."""
+    from pyqsm_tpu_torch.ops.raygrid import _BLOCK_ELEMS
+
+    r = origins.shape[0]
+    dev = origins.device
+    blk_safe = torch.where(live_pair, torch.clamp(blk_id, max=nb_cap - 1), nb_cap).long()
+    block_cell = torch.full((nb_cap + 1,), -1, dtype=torch.int32, device=dev).scatter_reduce(
+        0, blk_safe, torch.where(live_pair, skeys, -1), "amax")[:n_blk]
+    pair_ray = torch.full((nb_cap * block + 1,), -1, dtype=torch.int32, device=dev)
+    pair_ray[torch.clamp(blk_safe * block + pos_in_blk, max=nb_cap * block)] = \
+        torch.where(live_pair, srays, -1)
+    pair_ray = pair_ray[:n_blk * block].reshape(n_blk, block)
+    cap = cell_rows.shape[1] // 16 if packed_cells else tri_of_slot.shape[1]
+    step = 1
+    while step * 2 <= max(n_blk, 1) and step * 2 * cap * block <= _BLOCK_ELEMS:
+        step *= 2
+    shape = (n_blk, block)
+    t_b = torch.empty(shape, device=dev)
+    tri_b = torch.empty(shape, dtype=torch.int32, device=dev)
+    u_b = torch.empty(shape, device=dev)
+    v_b = torch.empty(shape, device=dev)
+    c_b = torch.empty(shape, dtype=torch.int32, device=dev)
+    cell32 = float(np.float32(cell_size))
+    for b0 in range(0, n_blk, step):
+        cells = block_cell[b0:b0 + step]
+        rays = pair_ray[b0:b0 + step]
+        n = cells.shape[0]
+        if packed_cells:
+            rnk = torch.where(cells >= 0, cell_rank[cells.clamp(min=0).long()], -1)
+            rows = cell_rows[rnk.clamp(min=0).long()].reshape(n, cap, 16)
+            ok_tri = (rnk >= 0)[:, None] & (rows[..., 9] > 0.5)
+            slots = torch.where(ok_tri, rows[..., 10].contiguous().view(torch.int32), -1)
+        else:
+            slots = tri_of_slot[cells.clamp(min=0).long()]
+            rows = packed[slots.clamp(min=0).long()]
+            ok_tri = (slots >= 0) & (cells >= 0)[:, None] & (rows[..., 9] > 0.5)
+        rid = rays.clamp(min=0).long()
+        o, d = origins[rid], dirs[rid]  # [n, block, 3]
+        ov = tuple(o[..., a][:, None, :] for a in range(3))
+        dv = tuple(d[..., a][:, None, :] for a in range(3))
+        tt, u, v = mt_components(ov, dv, tuple(rows[..., a][:, :, None] for a in range(3)),
+                                 tuple(rows[..., 3 + a][:, :, None] for a in range(3)),
+                                 tuple(rows[..., 6 + a][:, :, None] for a in range(3)),
+                                 ok_tri[:, :, None] & (rays >= 0)[:, None, :])
+        hit = torch.isfinite(tt)
+        t_hit = torch.where(hit, tt, 0.0)
+        # a crossing counts in the cell that holds its hit point; the cell
+        # size is a traced argument in the JAX package, so a true division
+        hcid = None
+        for a in range(3):
+            hca = _floor_cell((_fma(t_hit, dv[a], ov[a]) - lo[a]) / cell32, dims[a] - 1)
+            hcid = hca if hcid is None else hcid * dims[a] + hca
+        sl = slice(b0, b0 + n)
+        c_b[sl] = (hit & (hcid == cells[:, None, None])).sum(dim=1, dtype=torch.int32)
+        j = torch.argmin(tt, dim=1, keepdim=True)  # over cap: the first minimum
+        tmin = tt.gather(1, j)[:, 0]
+        t_b[sl] = tmin
+        tri_b[sl] = torch.where(torch.isfinite(tmin),
+                                slots[:, :, None].expand(-1, -1, block).gather(1, j)[:, 0], -1)
+        u_b[sl] = u.gather(1, j)[:, 0]
+        v_b[sl] = v.gather(1, j)[:, 0]
+    # each ray's reduction straight from the block layout (pad slots carry
+    # ray -1 and land in the dropped row r)
+    t_flat = t_b.reshape(-1)
+    wr = torch.where(pair_ray >= 0, pair_ray, r).reshape(-1).long()
+    best_t = torch.full((r + 1,), torch.inf, device=dev).scatter_reduce(0, wr, t_flat, "amin")
+    count = torch.zeros(r + 1, dtype=torch.int32, device=dev).scatter_reduce(
+        0, wr, c_b.reshape(-1), "sum")[:r]
+    is_best = torch.isfinite(t_flat) & (t_flat <= best_t[wr])
+    n_slots = t_flat.shape[0]
+    win = torch.full((r + 1,), _INT_MAX, dtype=torch.int32, device=dev).scatter_reduce(
+        0, torch.where(is_best, wr, r), torch.arange(n_slots, dtype=torch.int32, device=dev),
+        "amin")[:r]
+    best_t = best_t[:r]
+    has = torch.isfinite(best_t)
+    safe = torch.where(has, torch.clamp(win, max=n_slots - 1), 0).long()
+    return (best_t, torch.where(has, tri_b.reshape(-1)[safe], -1),
+            torch.where(has, u_b.reshape(-1)[safe], 0.0),
+            torch.where(has, v_b.reshape(-1)[safe], 0.0), count)
+
+
+def _merge_round(best_t, best_tri, best_u, best_v, count, ridx, alive, more, t, tri, u, v, cnt,
+                 t_cov, count_all: bool) -> torch.Tensor:
+    """Fold one round's results of the (compacted) rows into the bundle's
+    best arrays, in place, and return the surviving frontier. The best
+    arrays hold one row past the bundle, which takes the writes of rows
+    that are not alive (compaction padding aliases ray 0). A ray retires
+    when its closest hit lies inside the covered interval (unless
+    ``count_all``) or it left the grid."""
+    n = best_t.shape[0] - 1
+    ridx = ridx.long()
+    bt = best_t[ridx]
+    t_eff = torch.where(alive, t, torch.inf)
+    better = t_eff < bt
+    wr = torch.where(alive, ridx, n)
+    wr_b = torch.where(better, wr, n)
+    bt_after = torch.minimum(bt, t_eff)
+    best_t[wr] = bt_after
+    best_tri[wr_b] = tri
+    best_u[wr_b] = u
+    best_v[wr_b] = v
+    count.index_put_((wr,), torch.where(alive, cnt, 0), accumulate=True)
+    if count_all:
+        return alive & more
+    return alive & more & ~(bt_after <= t_cov + 1e-6)
+
+
+def _compact_frontier(alive, o_c, d_c, t_walk, c_resume, ridx, cap: int):
+    """The surviving frontier front-packed into ``cap`` rows (padding rows
+    alias row 0 and come back not alive)."""
+    sel = nonzero_rows(alive, cap)
+    safe = sel.clamp(min=0).long()
+    return o_c[safe], d_c[safe], t_walk[safe], c_resume[safe], ridx[safe], sel >= 0
+
+
+def _gather_tail(alive, o_c, d_c, ridx, cap: int):
+    """The stragglers for the tail fallback: their rays, their bundle rows
+    and which of the ``cap`` rows are live."""
+    sel = nonzero_rows(alive, cap)
+    safe = sel.clamp(min=0).long()
+    return o_c[safe], d_c[safe], ridx[safe], sel >= 0
+
+
+def _scatter_tail(best_t, best_tri, best_u, best_v, count, rows_live, live, hf: Hits):
+    """The tail fallback's results REPLACE the stragglers' rows, in place
+    (``grid_cast`` walks from the origin, so they are complete); returns
+    the ``handled`` mask that keeps these rays out of the residual pass."""
+    n = best_t.shape[0] - 1
+    rows = torch.where(live, rows_live, n).long()
+    best_t[rows] = torch.where(live, hf.t, torch.inf)
+    best_tri[rows] = torch.where(live, hf.tri, -1)
+    best_u[rows] = torch.where(live, hf.uv[:, 0], 0.0)
+    best_v[rows] = torch.where(live, hf.uv[:, 1], 0.0)
+    count[rows] = torch.where(live, hf.count, 0)
+    handled = torch.zeros(n + 1, dtype=torch.bool, device=best_t.device)
+    handled[rows] = live
+    return handled[:n]
+
+
+def _residual_merge(o, d, rows_r, res, best_t, best_tri, best_u, best_v, count, handled):
+    """Every ray against the spilled triangles ``res`` (packed rows
+    ``rows_r``), folded into the best arrays in place: a strictly closer
+    hit replaces, crossings add. Rays in ``handled`` (the tail fallback's,
+    whose DDA tested the spill itself) are left out. Rays go in chunks
+    that keep the [spill, rays] intermediate within ``_BLOCK_ELEMS``."""
+    from pyqsm_tpu_torch.ops.raygrid import _BLOCK_ELEMS
+
+    r = o.shape[0]
+    nr = rows_r.shape[0]
+    ok_r = ((res >= 0) & (rows_r[:, 9] > 0.5))[:, None]
+    v0c, e1c, e2c = (tuple(rows_r[:, b + a][:, None] for a in range(3)) for b in (0, 3, 6))
+    chunk = max(1, _BLOCK_ELEMS // max(nr, 1))
+    for c0 in range(0, r, chunk):
+        sl = slice(c0, c0 + chunk)
+        oc, dc = o[sl], d[sl]
+        tt, uu, vv = mt_components(tuple(oc[:, a][None, :] for a in range(3)),
+                                   tuple(dc[:, a][None, :] for a in range(3)), v0c, e1c, e2c, ok_r)
+        cm = torch.isfinite(tt).sum(dim=0, dtype=torch.int32)
+        jj = torch.argmin(tt, dim=0, keepdim=True)
+        tm = tt.gather(0, jj)[0]
+        trm = torch.where(torch.isfinite(tm), res[jj[0]], -1)
+        if handled is not None:
+            tm = torch.where(handled[sl], torch.inf, tm)
+            cm = torch.where(handled[sl], 0, cm)
+        better = tm < best_t[sl]
+        best_tri[sl] = torch.where(better, trm, best_tri[sl])
+        best_u[sl] = torch.where(better, uu.gather(0, jj)[0], best_u[sl])
+        best_v[sl] = torch.where(better, vv.gather(0, jj)[0], best_v[sl])
+        best_t[sl] = torch.minimum(best_t[sl], tm)
+        count[sl] = count[sl] + cm
+
+
+def grid_cast_wavefront(grid: Grid3D, origins: torch.Tensor, dirs: torch.Tensor, visits: int = 4,
+                        block: int = 256, count_all: bool = False, ray_tile: int = 65536,
+                        max_rounds: int | None = None, it_budget: int = 32,
+                        tail_fallback: int = 2048, debug: bool = False) -> Hits:
+    """Exact casting of an arbitrary bundle, cell-major (``grid_cast``'s
+    results; the module docstring has the design).
+
+    ``visits``: occupied cells a ray covers in round 0; ``it_budget``: its
+    advance cap there. Later rounds escalate: 4× both while more than
+    32 768 rows remain (the caller's schedule above 131 072), else 8×
+    ``visits`` and a budget that finishes the walk. Once the frontier is
+    a quarter of its buffer or less (and the buffer above 2048 rows), the
+    survivors are front-packed into a buffer of 2048·4^k rows. From round
+    1, once at most ``tail_fallback`` rays are alive, they finish in one
+    ``grid_cast`` of that many rays, whose results replace theirs
+    (``tail_fallback=0`` keeps every ray on the rounds). ``debug`` prints a
+    line a round (``rc=``, ``blocks=``, ``alive=``, phase seconds).
+
+    A host-stepped loop: each round reads the live block count and the
+    frontier's size (counted in ``SYNCS`` with the walk's tests)."""
+    global SYNCS
+    dev = origins.device
+    r = origins.shape[0]
+
+    def tick() -> float:
+        if debug and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    o = origins.to(torch.float32)
+    d = dirs.to(torch.float32)
+    dims = (grid.nx, grid.ny, grid.nz)
+    max_steps = grid.nx + grid.ny + grid.nz + 4
+    if max_rounds is None:
+        # each round advances a live ray by ≥ it_budget cells or retires it;
+        # the visits quota binds only when every advance lands in an occupied cell
+        max_rounds = -(-max_steps // visits) + -(-max_steps // it_budget) + 2
+    # the best arrays hold one row past the bundle for dropped writes
+    best_t = torch.full((r + 1,), torch.inf, device=dev)
+    best_tri = torch.full((r + 1,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(r + 1, device=dev)
+    best_v = torch.zeros(r + 1, device=dev)
+    count = torch.zeros(r + 1, dtype=torch.int32, device=dev)
+    handled = None  # the rays the tail fallback finished (residual included)
+
+    # the working set: the whole bundle, front-packed as the frontier shrinks
+    o_c, d_c = o, d
+    ridx = torch.arange(r, dtype=torch.int32, device=dev)
+    t_walk = torch.zeros(r, device=dev)
+    alive = torch.ones(r, dtype=torch.bool, device=dev)
+    c_resume = torch.zeros((r, 3), dtype=torch.int32, device=dev)
+    rc = r
+    for rnd in range(max_rounds if r else 0):
+        t_rnd = tick()
+        if rnd == 0 or rc > 131072:
+            v_rnd, b_rnd = visits, it_budget
+        elif rc > 32768:
+            v_rnd, b_rnd = 4 * visits, 4 * it_budget
+        else:
+            v_rnd = 8 * visits
+            b_rnd = max_steps + v_rnd
+        vis, t_cov, more, c_resume, t_walk = _enumerate_visits(
+            o_c, d_c, t_walk, alive, c_resume, grid.lo, grid.cell, grid.nx, grid.ny, grid.nz,
+            grid.skip, ray_tile=min(ray_tile, max(256, 1 << (rc - 1).bit_length())),
+            visits=v_rnd, max_steps=max_steps, first_round=rnd == 0, it_budget=b_rnd)
+        t_enum = tick()
+        skeys, srays, blk_id, pos_in_blk, live_pair, n_blk_d = _sort_pairs(vis, block, alive)
+        SYNCS += 1
+        n_blk = int(n_blk_d)  # host read: the exact live block count
+        t_sort = time.perf_counter()
+        if n_blk > 0:
+            # power-of-two buckets up to 4096 blocks, then steps of 4096
+            if n_blk <= 4096:
+                nb_cap = 256
+                while nb_cap < n_blk:
+                    nb_cap *= 2
+            else:
+                nb_cap = -4096 * (-n_blk // 4096)
+            t, tri, u, v, cnt = _mt_blocks(
+                o_c, d_c, skeys, srays, blk_id, pos_in_blk, live_pair, grid.tri_of_slot,
+                grid.packed, grid.lo, grid.cell, dims, block=block, nb_cap=nb_cap, n_blk=n_blk,
+                cell_rank=grid.cell_rank, cell_rows=grid.cell_rows,
+                packed_cells=bool(grid.packed_cells))
+        else:
+            t = torch.full((rc,), torch.inf, device=dev)
+            tri = torch.full((rc,), -1, dtype=torch.int32, device=dev)
+            u = v = torch.zeros(rc, device=dev)
+            cnt = torch.zeros(rc, dtype=torch.int32, device=dev)
+        t_mt = tick()
+        alive = _merge_round(best_t, best_tri, best_u, best_v, count, ridx, alive, more, t, tri,
+                             u, v, cnt, t_cov, count_all)
+        SYNCS += 1
+        n_alive = int(alive.sum())  # host read: the frontier's size
+        if debug:
+            print(f"# wavefront rnd={rnd} rc={rc} blocks={n_blk} alive={n_alive} "
+                  f"dt={time.perf_counter() - t_rnd:.3f}s (enum={t_enum - t_rnd:.3f} "
+                  f"sort={t_sort - t_enum:.3f} mt={t_mt - t_sort:.3f} "
+                  f"merge={time.perf_counter() - t_mt:.3f})", flush=True)
+        if n_alive == 0:
+            break
+        if rnd >= 1 and n_alive <= tail_fallback:
+            # the stragglers finish in one DDA cast of tail_fallback rays
+            t_fb = time.perf_counter()
+            o_t, d_t, rows_live, live = _gather_tail(alive, o_c, d_c, ridx, tail_fallback)
+            hf = grid_cast(grid, o_t, d_t, ray_tile=tail_fallback, count_all=count_all)
+            handled = _scatter_tail(best_t, best_tri, best_u, best_v, count, rows_live, live, hf)
+            if debug:
+                print(f"# wavefront tail-fallback n={n_alive} dt={tick() - t_fb:.3f}s",
+                      flush=True)
+            break
+        if n_alive <= rc // 4 and rc > 2048:
+            rc_new = 2048
+            while rc_new < n_alive:
+                rc_new *= 4
+            o_c, d_c, t_walk, c_resume, ridx, alive = _compact_frontier(
+                alive, o_c, d_c, t_walk, c_resume, ridx, rc_new)
+            rc = rc_new
+
+    best_t, best_tri, best_u, best_v, count = (x[:r] for x in (best_t, best_tri, best_u, best_v,
+                                                               count))
+    if grid.n_residual > 0:
+        # the spilled triangles, absent from every cell, once a ray
+        t_res = time.perf_counter()
+        res = grid.residual
+        _residual_merge(o, d, grid.packed[res.clamp(min=0).long()], res, best_t, best_tri,
+                        best_u, best_v, count, handled)
+        if debug:
+            print(f"# wavefront residual n={grid.n_residual} dt={tick() - t_res:.3f}s",
+                  flush=True)
+    return Hits(t=best_t, tri=best_tri, uv=torch.stack([best_u, best_v], 1), count=count)
 
 
 def grid_occupancy(grid: Grid3D, points: torch.Tensor, ray_tile: int = 4096) -> torch.Tensor:

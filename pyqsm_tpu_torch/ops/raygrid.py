@@ -456,6 +456,34 @@ def _image_cast_tiles(tile_ids: torch.Tensor, eye, right, true_up, fwd, half: fl
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+def _assemble_image(parts, width: int, height: int, tile_px: int, dev):
+    """Row-major pixel images ``(t, tri, u, v, count)``, each [H·W], from
+    ``parts``: pairs of tile ids (-1 = padding) and their cast rows
+    ``(t, tri, u, v, count)``, each [M, tile_px²]."""
+    ntx = -(-width // tile_px)
+    nty = -(-height // tile_px)
+    tp = tile_px
+    rpc = tp * tp
+    ntiles = ntx * nty
+    # an (ntiles + 1)-row buffer whose last row takes the padding tiles and
+    # is dropped: ``.at[row].set(mode="drop")``
+    bufs = (torch.full((ntiles + 1, rpc), torch.inf, device=dev),
+            torch.full((ntiles + 1, rpc), -1, dtype=torch.int32, device=dev),
+            torch.zeros((ntiles + 1, rpc), device=dev),
+            torch.zeros((ntiles + 1, rpc), device=dev),
+            torch.zeros((ntiles + 1, rpc), dtype=torch.int32, device=dev))
+    for ids, res in parts:
+        row = torch.where(ids >= 0, ids, ntiles).long()
+        for buf, x in zip(bufs, res):
+            buf[row] = x
+
+    def to_image(flat):
+        img = flat[:ntiles].reshape(ntx, nty, tp, tp).permute(1, 2, 0, 3)  # [ty, oy, tx, ox]
+        return img.reshape(nty * tp, ntx * tp)[:height, :width].reshape(-1)
+
+    return tuple(to_image(x) for x in bufs)
+
+
 def _image_cast_fused(ids_list, eye, right, true_up, fwd, half: float, aspect: float,
                       width: int, height: int, tile_px: int, tri_of_slot, v0, e1, e2, valid,
                       caps: tuple, tiles_per_block: int, rows_list=(),
@@ -463,43 +491,60 @@ def _image_cast_fused(ids_list, eye, right, true_up, fwd, half: float, aspect: f
     """Every bucket, assembled into row-major pixel images. Each bucket's
     tiles are cast up to its last live id (the padding ids past it would
     land in the dropped row). Returns (t, tri, u, v, count), each [H·W]."""
-    ntx = -(-width // tile_px)
-    nty = -(-height // tile_px)
-    tp = tile_px
-    rpc = tp * tp
-    ntiles = ntx * nty
-    dev = eye.device
-    # an (ntiles + 1)-row buffer whose last row takes the padding tiles and
-    # is dropped: ``.at[row].set(mode="drop")``
-    t_all = torch.full((ntiles + 1, rpc), torch.inf, device=dev)
-    tri_all = torch.full((ntiles + 1, rpc), -1, dtype=torch.int32, device=dev)
-    u_all = torch.zeros((ntiles + 1, rpc), device=dev)
-    v_all = torch.zeros((ntiles + 1, rpc), device=dev)
-    cnt_all = torch.zeros((ntiles + 1, rpc), dtype=torch.int32, device=dev)
-    for bi, (cap, ids) in enumerate(zip(caps, ids_list)):
-        m = int((ids >= 0).sum())  # live ids are front-packed
-        ids = ids[:m]
-        res = _image_cast_tiles(ids, eye, right, true_up, fwd, half, aspect, width, height, tp,
-                                tri_of_slot[:, :cap], v0, e1, e2, valid,
-                                tiles_per_block=tiles_per_block,
-                                rows_aligned=rows_list[bi][:m] if packed_cells else None,
-                                packed_cells=packed_cells)
-        row = torch.where(ids >= 0, ids, ntiles).long()
-        for buf, x in zip((t_all, tri_all, u_all, v_all, cnt_all), res):
-            buf[row] = x
+    def parts():
+        for bi, (cap, ids) in enumerate(zip(caps, ids_list)):
+            m = int((ids >= 0).sum())  # live ids are front-packed
+            ids = ids[:m]
+            yield ids, _image_cast_tiles(
+                ids, eye, right, true_up, fwd, half, aspect, width, height, tile_px,
+                tri_of_slot[:, :cap], v0, e1, e2, valid, tiles_per_block=tiles_per_block,
+                rows_aligned=rows_list[bi][:m] if packed_cells else None,
+                packed_cells=packed_cells)
 
-    def to_image(flat):
-        img = flat[:ntiles].reshape(ntx, nty, tp, tp).permute(1, 2, 0, 3)  # [ty, oy, tx, ox]
-        return img.reshape(nty * tp, ntx * tp)[:height, :width].reshape(-1)
+    return _assemble_image(parts(), width, height, tile_px, eye.device)
 
-    return tuple(to_image(x) for x in (t_all, tri_all, u_all, v_all, cnt_all))
+
+def _residual_scene(grid: ImageGrid):
+    """What the residual pass casts: ``(origins, dirs, vertices, triangles,
+    ids)``, every pixel's ray (``image_rays``) and the eye-straddling
+    triangles as a soup of their own with their grid ids; None when the
+    grid has no residual triangle."""
+    if not (grid.residual.shape[0] and bool(grid.residual[0] >= 0)):
+        return None
+    # the tiles' own pixel rays (the JAX package regenerates them with
+    # pinhole_rays, whose directions round otherwise by an ulp)
+    origins, dirs = image_rays(grid)
+    rid = grid.residual[grid.residual >= 0].long()
+    verts_r = torch.stack([grid.v0[rid], (grid.v0 + grid.e1)[rid],
+                           (grid.v0 + grid.e2)[rid]], 1).reshape(-1, 3)
+    tris_flat = torch.arange(verts_r.shape[0], dtype=torch.int32,
+                             device=verts_r.device).reshape(-1, 3)
+    return origins, dirs, verts_r, tris_flat, rid
+
+
+def _merge_residual(grid: ImageGrid, t, tri, uv, cnt, cast) -> Hits:
+    """The tiles' hits merged with the residual triangles' hits, which
+    ``cast(origins, dirs, vertices, triangles) -> Hits`` computes on
+    ``_residual_scene``'s inputs; the tiles' hits alone without a
+    residual."""
+    scene = _residual_scene(grid)
+    if scene is not None:
+        origins, dirs, verts_r, tris_flat, rid = scene
+        h = cast(origins, dirs, verts_r, tris_flat)
+        better = h.t < t
+        t = torch.minimum(t, h.t)
+        tri = torch.where(better, rid.int()[h.tri.clamp(0, len(rid) - 1).long()], tri)
+        uv = torch.where(better[:, None], h.uv, uv)
+        cnt = cnt + h.count
+    return Hits(t=t, tri=tri, uv=uv, count=cnt)
 
 
 def image_cast(grid: ImageGrid, tiles_per_block: int = 512) -> Hits:
     """Cast the full pinhole image against the prebuilt screen-space grid:
     Hits in row-major pixel order (the layout of ``raytrace.pinhole_rays``).
     Tiles are bucketed by occupancy (powers of two), so a tile's pixels test
-    a list sized to its own load; empty tiles are never cast."""
+    a list sized to its own load; empty tiles are never cast. The few
+    eye-straddling residual triangles go brute through the fused kernel."""
     caps = tuple(int(c) for c, _, _ in grid.buckets)
     ids_list = tuple(ids for _, ids, _ in grid.buckets)
     rows_list = tuple(rows for _, _, rows in grid.buckets)
@@ -508,24 +553,8 @@ def image_cast(grid: ImageGrid, tiles_per_block: int = 512) -> Hits:
         grid.width, grid.height, grid.tile_px, grid.tri_of_slot, grid.v0, grid.e1, grid.e2,
         grid.valid, caps=caps, tiles_per_block=tiles_per_block, rows_list=rows_list,
         packed_cells=True)
-    uv = torch.stack([u_, v_], 1)
-    if grid.residual.shape[0] and bool(grid.residual[0] >= 0):
-        # the tiles' own pixel rays (the JAX package regenerates them with
-        # pinhole_rays, whose directions round otherwise by an ulp)
-        origins, dirs = image_rays(grid)
-        rid = grid.residual[grid.residual >= 0].long()
-        # the few eye-straddling triangles, brute through the fused kernel
-        verts_r = torch.stack([grid.v0[rid], (grid.v0 + grid.e1)[rid],
-                               (grid.v0 + grid.e2)[rid]], 1).reshape(-1, 3)
-        tris_flat = torch.arange(verts_r.shape[0], dtype=torch.int32,
-                                 device=verts_r.device).reshape(-1, 3)
-        h = cast_rays(origins.contiguous(), dirs, verts_r, tris_flat, backend="kernel")
-        better = h.t < t
-        t = torch.minimum(t, h.t)
-        tri = torch.where(better, rid.int()[h.tri.clamp(0, len(rid) - 1).long()], tri)
-        uv = torch.where(better[:, None], h.uv, uv)
-        cnt = cnt + h.count
-    return Hits(t=t, tri=tri, uv=uv, count=cnt)
+    return _merge_residual(grid, t, tri, torch.stack([u_, v_], 1), cnt,
+                           lambda o, d, v, f: cast_rays(o.contiguous(), d, v, f, backend="kernel"))
 
 
 class CellCastResult(NamedTuple):

@@ -264,15 +264,6 @@ def test_two_level_cast_matches_jax(bundle, count_all, monkeypatch):
         np.testing.assert_array_equal(ours.count.numpy(), brute.count.numpy())
 
 
-def test_wavefront_raises_with_its_roadmap_item():
-    v, t, _, gt = _grids("four")
-    o = _t(np.zeros((4, 3), np.float32))
-    for call in (lambda: tg.two_level_cast(gt, o, o, wavefront=True),
-                 lambda: tg.grid_cast_wavefront(gt, o, o)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1"):
-            call()
-
-
 def test_grid_occupancy_matches_jax():
     rng = np.random.default_rng(9)
     s = jm.sphere_mesh(jnp.array([0.0, 0, 0.0]), 1.0, n_lat=12, n_lon=24)

@@ -37,7 +37,7 @@ REQUIRED = ["ops/band_matvec.py", "ops/cuda_build.py", "ops/mt_raycast.py", "ops
             "ops/raytrace.py", "ops/voxelmesh.py", "ops/raygrid.py", "models/raycast.py",
             "convert.py", "ops/segment.py", "state.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/growth.py", "ops/area.py", "ops/color.py",
-            "ops/cluster.py", "models/canopy.py"]
+            "ops/cluster.py", "models/canopy.py", "ops/grid3d.py", "parallel/raycast.py"]
 
 
 def test_import_scan_covers_every_port_module():
