@@ -128,12 +128,32 @@ Phases, each printing lines with the elapsed seconds:
    the rank's part of cast_scene's rays against phase 7's mesh and its
    pixels against the residual triangles; (d) the wavefront and ``sharded_grid_cast`` (the card's
    ranks against 4 gloo ranks on the CPU) on phase 14's small scene: tri
-   and counts equal, t within 1e-6 relative.
+   and counts equal, t within 1e-6 relative;
+16. sphere-following QSM on phase 5's plot: (a) the bench's walk
+   (bench.py:494-532) on its largest tree, voxel-laddered to at most
+   300 000 points, seed rows below zmin + 0.5 m, radius 0.3, 48 steps,
+   blocks of 1024, 512 hypotheses, a first and a steady call (seconds,
+   steps, cylinders, ``models/qsm.SYNCS`` host reads, peak memory; at
+   least one cylinder, all finite); (b) ``qsm_generation_main`` (sphere,
+   256 steps) on that tree written by the port's ``write_npz`` — its
+   cylinder file must read back the count it printed — then
+   ``raycast_main`` and ``tree_isolation_main`` on the same file
+   (``mt_raycast`` launches and seconds); (c) ``sphere_qsm_forest`` over
+   the plot's 8 trees, each laddered as (a)'s (seconds, cylinders a tree; two trees alone equal to
+   their rows of the batch bit for bit; 4 ranks of ``mesh=`` — NCCL with
+   a card each on four cards, gloo on ``cuda:0`` otherwise — equal to the
+   single-device forest bit for bit); (d) the walk on a small Y-shaped
+   tree on the card and on the CPU from the same draws: found, branch
+   orders, steps, cylinder counts, orders and parents equal, floats
+   within 1e-4.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that last line; so does a machine without CUDA, or a directory
-that holds this script without the package beside it.
+that holds this script without the package beside it. Before it exits,
+passed or failed, the script stops every process it started that still
+runs (multiprocessing's resource tracker, a rank) and logs their command
+lines.
 """
 
 from __future__ import annotations
@@ -171,6 +191,73 @@ def log(phase: str, msg: str) -> None:
 def fail(msg: str, code: int = 1) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(code)
+
+
+def descendants() -> dict[int, str]:
+    """This process's descendants that have not exited, by pid, with their
+    command lines (read from ``/proc``)."""
+    parent, cmd = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                line = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue  # exited meanwhile
+        if state not in ("Z", "X"):
+            parent[int(d)], cmd[int(d)] = int(ppid), line
+    out, todo = {}, [os.getpid()]
+    while todo:
+        p = todo.pop()
+        for c, pp in parent.items():
+            if pp == p and c not in out:
+                out[c] = cmd[c]
+                todo.append(c)
+    return out
+
+
+def adopt_orphans() -> None:
+    """Make this process the Linux child subreaper of what it starts, so a
+    process whose parent exits (a daemon that forks itself away) stays its
+    descendant, seen and stopped by ``stop_children``."""
+    import ctypes
+
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)  # PR_SET_CHILD_SUBREAPER
+
+
+def stop_children(grace_s: float = 10.0) -> dict[int, str]:
+    """Stop every process this script started that still runs, reap them
+    and return those found: multiprocessing's resource tracker (started
+    with the first rank's queue; it outlives the ranks) is told to stop and
+    waited for, anything else gets SIGTERM, then SIGKILL after ``grace_s``."""
+    import multiprocessing as mp
+    from multiprocessing import resource_tracker
+
+    found = descendants()
+    for p in mp.active_children():
+        p.terminate()
+        p.join()
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None and hasattr(tracker, "_stop"):
+        tracker._stop()
+    sig, deadline = signal.SIGTERM, time.monotonic() + grace_s
+    while left := descendants():
+        for pid in left:
+            with contextlib.suppress(OSError):
+                os.kill(pid, sig)
+        if time.monotonic() > deadline + grace_s:
+            break  # unkillable (stuck in the kernel): nothing more to do
+        if time.monotonic() > deadline:
+            sig = signal.SIGKILL
+        time.sleep(0.1)
+    with contextlib.suppress(ChildProcessError):  # reap the exited ones
+        while os.waitpid(-1, os.WNOHANG)[0] > 0:
+            pass
+    return found
 
 
 def synthetic_plot(n_total: int, n_trees: int, seed: int, device):
@@ -1930,12 +2017,333 @@ def small_card_cpu(g3, launch, small: dict, card_ranks: list) -> float:
     return worst
 
 
+def walk_tree(sampling, pts, labels, tree_id: int, walk_points: int):
+    """One tree's rows of the plot voxel-laddered as the bench's walk
+    (bench.py:498-508): voxel 0.03 m, grown 1.3× until at most
+    ``walk_points`` live rows remain, then compacted (numpy, live rows)."""
+    import torch
+
+    rows = labels == tree_id
+    voxel = 0.03
+    p2, m2, _ = sampling.voxel_downsample(pts, voxel, rows)
+    while int(m2.sum()) > walk_points and voxel < 0.5:
+        voxel *= 1.3
+        p2, m2, _ = sampling.voxel_downsample(pts, voxel, rows)
+    return p2[m2].cpu().numpy(), voxel
+
+
+def walk_seed(tree, block: int = 1024):
+    """The bench's seed front: rows below zmin + 0.5 m, at most ``block``."""
+    import numpy as np
+
+    z = tree[:, 2]
+    rows = np.flatnonzero(z < z.min() + 0.5)
+    seed = np.full(block, -1, np.int32)
+    seed[:min(len(rows), block)] = rows[:block]
+    return seed
+
+
+def qsm_walk_path(tq, cfg, tree) -> dict:
+    """Phase 16a: the bench's sphere walk (bench.py:509-532) on the main
+    path's largest tree, a first and a steady call."""
+    import numpy as np
+    import torch
+
+    seed = walk_seed(tree)
+    out = {}
+    for call in ("first", "steady"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tq.SYNCS = 0
+        t0 = time.perf_counter()
+        res = tq.sphere_following_qsm(tree, np.ones(len(tree), bool), seed, seed >= 0, 0.3,
+                                      sphere=cfg.sphere, dbscan_cfg=cfg.dbscan, max_steps=48,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        c = res.cylinders
+        m = c.mask
+        finite = all(bool(torch.isfinite(getattr(c, f)[m]).all())
+                     for f in ("center", "axis", "height", "radius"))
+        out[call] = dict(s=s, steps=res.n_steps, cylinders=int(c.count()), syncs=tq.SYNCS,
+                         found=int(res.found.sum()), finite=finite,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         median_radius=float(c.radius[m].median()) if bool(m.any()) else None)
+        log("qsm_walk", f"{call} call: {len(tree)} points, seed {int((seed >= 0).sum())} rows: "
+            f"{s:.3f}s, {res.n_steps} steps, {out[call]['cylinders']} cylinders (median radius "
+            f"{out[call]['median_radius']}), {out[call]['found']} rows claimed, {tq.SYNCS} host "
+            f"reads, max_memory_allocated {out[call]['peak_gib']:.3f} GiB, finite {finite}")
+        if out[call]["cylinders"] < 1 or not finite:
+            fail(f"sphere walk ({call}): no cylinder or non-finite cylinder values")
+    out["breakdown"] = walk_breakdown(tq, cfg, tree, seed)
+    return out
+
+
+WALK_PARTS = {"chain": "_qsm_chain_fused", "wave": "_qsm_wave_fused",
+              "policy": "_process_front_policy", "eps_floor": "_eps_floor"}
+
+
+def walk_breakdown(tq, cfg, tree, seed) -> dict:
+    """Where the steady walk's time goes: a third call with its parts
+    timed (each synchronised; the policy includes the k-means sweeps), and
+    a fourth under ``torch.profiler`` for the card's busy time (the sum of
+    the kernels' device time against the wall)."""
+    import numpy as np
+    import torch
+
+    args = (tree, np.ones(len(tree), bool), seed, seed >= 0, 0.3)
+    kw = dict(sphere=cfg.sphere, dbscan_cfg=cfg.dbscan, max_steps=48, device="cuda")
+    with timing(tq, WALK_PARTS) as times:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tq.sphere_following_qsm(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"wall_s": wall}
+    for part, got in times.items():
+        out[part] = dict(calls=len(got), s=sum(t for t, _ in got))
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tq.sphere_following_qsm(*args, **kw)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        ev = prof.key_averages()
+        dev_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                     for e in ev)
+        top = sorted(ev, key=lambda e: -getattr(e, "self_device_time_total",
+                                                 getattr(e, "self_cuda_time_total", 0)))[:5]
+        out["profiled"] = dict(
+            wall_s=pwall, device_s=dev_us / 1e6,
+            busy_share=dev_us / 1e6 / pwall if pwall > 0 else None,
+            kernels=sum(e.count for e in ev if getattr(e, "device_type", None) is not None
+                        and "CUDA" in str(e.device_type)),
+            top=[(e.key[:60], getattr(e, "self_device_time_total",
+                                      getattr(e, "self_cuda_time_total", 0)) / 1e3)
+                 for e in top])
+    except Exception as exc:  # noqa: BLE001 — the busy share is then not measured
+        out["profiled"] = f"not measured ({type(exc).__name__}: {exc})"
+    log("qsm_walk", f"steady walk's parts (synchronised): wall {wall:.3f}s, " + ", ".join(
+        f"{p} {v['calls']} calls {v['s']:.3f}s" for p, v in out.items()
+        if isinstance(v, dict) and "calls" in v) + f"; under the profiler: {out['profiled']}")
+    return out
+
+
+def qsm_cli_path(cli, artifacts, readers, mt, tree) -> dict:
+    """Phase 16b: the CLI's entry points on the tree written by the port's
+    ``write_npz``: ``qsm_generation_main`` (sphere, 256 steps), whose
+    cylinder file must read back with the count it printed, then
+    ``raycast_main`` and ``tree_isolation_main`` on the same file."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "tree.npz"
+        readers.write_npz(path, tree)
+        for name, main, argv in (
+                ("qsm_generation", cli.qsm_generation_main, ["--max-steps", "256"]),
+                ("raycast", cli.raycast_main, []),
+                ("tree_isolation", cli.tree_isolation_main,
+                 ["--base-min-points", "200", "--low-pctile", "4"])):
+            before = mt.LAUNCHES
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = main([str(path), "-o", d] + argv)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            printed = buf.getvalue().strip()
+            out[name] = dict(rc=rc, s=s, mt_raycast_launches=mt.LAUNCHES - before,
+                             printed=printed)
+            log("qsm_cli", f"{name}_main: rc {rc}, {s:.3f}s, mt_raycast launches "
+                f"{out[name]['mt_raycast_launches']}: {printed}")
+            if rc != 0:
+                fail(f"{name}_main returned {rc}")
+        cyl = artifacts.load_cylinders(Path(d) / "tree_qsm.npz")
+        n_printed = int(out["qsm_generation"]["printed"].split()[0])
+        out["qsm_generation"]["cylinders"] = int(cyl.count())
+        iso = readers.read_npz(Path(d) / "tree_trees.npz")
+        labels = iso["labels"]
+        out["tree_isolation"]["trees"] = int(len(set(labels[labels >= 0].tolist())))
+        exposure = artifacts.load_metrics(Path(d) / "tree_exposure.json")
+        out["raycast"]["n_triangles"] = exposure["n_triangles"]
+    log("qsm_cli", f"cylinder file reads back {out['qsm_generation']['cylinders']} cylinders "
+        f"(printed {n_printed}); raycast mesh {out['raycast']['n_triangles']} triangles; "
+        f"isolation found {out['tree_isolation']['trees']} trees")
+    if out["qsm_generation"]["cylinders"] != n_printed or n_printed < 1:
+        fail("qsm_generation_main's cylinder file does not read back its count")
+    if out["raycast"]["n_triangles"] < 1 or out["tree_isolation"]["trees"] < 1:
+        fail("raycast_main or tree_isolation_main wrote an empty artifact")
+    return out
+
+
+def forest_inputs(trees: list, block: int = 1024):
+    """Trees (numpy [n_i, 3] clouds) as the forest's padded [T, Np, 3]
+    clouds, masks, seed fronts (the bench's seed rule) and radii."""
+    import numpy as np
+
+    npad = max(len(t) for t in trees)
+    points = np.zeros((len(trees), npad, 3), np.float32)
+    mask = np.zeros((len(trees), npad), bool)
+    seeds = np.full((len(trees), block), -1, np.int32)
+    for i, t in enumerate(trees):
+        points[i, :len(t)], mask[i, :len(t)] = t, True
+        seeds[i] = walk_seed(t, block)
+    return points, mask, seeds, seeds >= 0, [0.3] * len(trees)
+
+
+FOREST_KW = dict(max_steps=48)
+
+
+def qsm_forest_rank(inputs, mesh=None) -> dict:
+    """One rank of phase 16c: ``sphere_qsm_forest(mesh=)`` on the whole
+    forest (every rank gets the same numpy inputs and returns all trees)."""
+    import torch
+
+    from pyqsm_tpu_torch.models import qsm as tq
+
+    torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    res = tq.sphere_qsm_forest(*inputs, mesh=mesh, device=mesh.device, **FOREST_KW)
+    torch.cuda.synchronize(mesh.device)
+    return dict(rank=mesh.rank, device=str(mesh.device), backend=mesh.backend,
+                s=time.perf_counter() - t0, results=res)
+
+
+def same_walk(a, b) -> bool:
+    import torch
+
+    return (a.n_steps == b.n_steps and torch.equal(a.found.cpu(), b.found.cpu())
+            and torch.equal(a.branch_order.cpu(), b.branch_order.cpu())
+            and all(torch.equal(getattr(a.cylinders, f).cpu(), getattr(b.cylinders, f).cpu())
+                    for f in a.cylinders._fields))
+
+
+def qsm_forest_path(tq, launch, trees: list) -> dict:
+    """Phase 16c: ``sphere_qsm_forest`` over the plot's trees (each
+    voxel-laddered as phase 16a's) on the card;
+    two trees alone against their rows of the batch, bit for bit; then
+    ``SHARDED_RANKS`` ranks (NCCL with a card each on a four-card machine,
+    gloo on ``cuda:0`` otherwise) against the single-device forest."""
+    import torch
+
+    inputs = forest_inputs(trees)
+    out = {"n_points": [int(m.sum()) for m in inputs[1]]}
+    for call in ("first", "steady"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tq.sphere_qsm_forest(*inputs, device="cuda", **FOREST_KW)
+        torch.cuda.synchronize()
+        out[f"{call}_s"] = time.perf_counter() - t0
+    out["cylinders"] = [int(r.cylinders.count()) for r in res]
+    out["steps"] = [r.n_steps for r in res]
+    log("qsm_forest", f"{len(trees)} trees ({out['n_points']} points): first call "
+        f"{out['first_s']:.3f}s, steady {out['steady_s']:.3f}s; cylinders {out['cylinders']}, "
+        f"steps {out['steps']}")
+    if min(out["cylinders"]) < 1:
+        fail("a tree of the forest has no cylinder")
+    singles = {}
+    for i in (0, len(trees) - 1):
+        one = tuple(x[i:i + 1] for x in inputs[:4]) + (inputs[4][i:i + 1],)
+        alone = tq.sphere_qsm_forest(*one, seeds=[i], device="cuda", **FOREST_KW)[0]
+        singles[i] = same_walk(alone, res[i])
+    out["batch_invariant"] = singles
+    log("qsm_forest", f"forest([i]) equals the batch's tree i bit for bit: {singles}")
+    if not all(singles.values()):
+        fail("the forest's per-tree results depend on the batch")
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= SHARDED_RANKS else "gloo"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(qsm_forest_rank, SHARDED_RANKS, backend, args=(inputs,),
+                   device="cuda" if backend == "nccl" else "cuda:0", timeout=BUDGET_S)
+    out["sharded"] = dict(backend=backend, launch_s=time.perf_counter() - t0,
+                          rank_s=[r["s"] for r in ranks],
+                          equal=[all(same_walk(a, b) for a, b in zip(r["results"], res))
+                                 for r in ranks])
+    log("qsm_forest", f"{SHARDED_RANKS} ranks ({backend}, devices "
+        f"{[r['device'] for r in ranks]}): forest(mesh=) in {out['sharded']['rank_s']} s "
+        f"(launch {out['sharded']['launch_s']:.2f}s); every rank's forest equals the "
+        f"single-device one bit for bit: {out['sharded']['equal']}")
+    if not all(out["sharded"]["equal"]):
+        fail("the sharded forest differs from the single-device forest")
+    return out
+
+
+def y_tree(seed: int):
+    """A trunk forking into two branches (tests/test_qsm.py's Y tree)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def branch(n, r, length, axis, base):
+        axis = np.asarray(axis, float) / np.linalg.norm(axis)
+        ref = np.array([1.0, 0, 0]) if abs(axis[0]) < 0.9 else np.array([0, 1.0, 0])
+        u = np.cross(axis, ref)
+        u /= np.linalg.norm(u)
+        v = np.cross(axis, u)
+        t, th = rng.uniform(0, length, n), rng.uniform(0, 2 * np.pi, n)
+        rr = r + rng.normal(0, 0.005, n)
+        return (t[:, None] * axis + rr[:, None] * (np.cos(th)[:, None] * u
+                                                   + np.sin(th)[:, None] * v) + base)
+
+    return np.concatenate([branch(3000, 0.25, 4.0, [0, 0, 1], [0, 0, 0]),
+                           branch(1500, 0.12, 3.0, [0.7, 0, 0.7], [0, 0, 4.0]),
+                           branch(1500, 0.12, 3.0, [-0.7, 0, 0.7], [0, 0, 4.0])]
+                          ).astype(np.float32)
+
+
+def qsm_card_cpu(tq, seed: int) -> dict:
+    """Phase 16d: the walk on a small Y-shaped tree on the card and on the
+    CPU from the same draws: discrete outputs equal, floats within 1e-4."""
+    import numpy as np
+    import torch
+
+    tree = y_tree(seed)
+    s = np.full(256, -1, np.int32)
+    rows = np.flatnonzero(tree[:, 2] < 0.4)[:256]
+    s[:len(rows)] = rows
+    kw = dict(block_size=256, max_steps=128, seed=seed)
+    card = tq.sphere_following_qsm(tree, np.ones(len(tree), bool), s, s >= 0, 0.25,
+                                   device="cuda", **kw)
+    cpu = tq.sphere_following_qsm(tree, np.ones(len(tree), bool), s, s >= 0, 0.25,
+                                  device="cpu", **kw)
+    cc, pc = card.cylinders, cpu.cylinders
+    discrete = (card.n_steps == cpu.n_steps
+                and torch.equal(card.found.cpu(), cpu.found)
+                and torch.equal(card.branch_order.cpu(), cpu.branch_order)
+                and all(torch.equal(getattr(cc, f).cpu(), getattr(pc, f))
+                        for f in ("mask", "branch_order", "parent")))
+    m = pc.mask
+    err = max(float((getattr(cc, f).cpu()[m] - getattr(pc, f)[m]).abs().max())
+              for f in ("center", "axis", "height", "radius")) if discrete and bool(m.any()) \
+        else float("inf")
+    out = dict(steps=card.n_steps, cylinders=int(cc.count()), discrete_equal=discrete,
+               max_abs_err=err, orders=sorted(set(pc.branch_order[m].tolist())))
+    log("qsm_card_cpu", f"Y tree ({len(tree)} points): card and CPU {card.n_steps}/"
+        f"{cpu.n_steps} steps, {int(cc.count())}/{int(pc.count())} cylinders, found, branch "
+        f"orders, cylinder orders and parents equal {discrete}; centres, axes, radii, heights "
+        f"max abs err {err:.3e} (tol 1e-4); branch orders {out['orders']}")
+    if not discrete or err > 1e-4:
+        fail("the walk on the card differs from the walk on the CPU")
+    if max(out["orders"]) < 1:
+        fail("the Y tree's walk never split at the fork")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--points", type=int, default=2_000_000,
                     help="plot size of the main-path run (the bench measures 10 000 000)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    adopt_orphans()
 
     def on_alarm(signum, frame):
         fail(f"wall-clock budget of {BUDGET_S} s exceeded")
@@ -1969,6 +2377,10 @@ def main() -> None:
         from pyqsm_tpu_torch.ops import sparse as sp
         from pyqsm_tpu_torch.ops import voxelmesh as vm
         from pyqsm_tpu_torch.parallel.mesh import launch
+        from pyqsm_tpu_torch.io import artifacts, readers
+        from pyqsm_tpu_torch.models import qsm as tq
+        from pyqsm_tpu_torch.ops import sampling
+        from pyqsm_tpu_torch.pipeline import cli
     except ImportError as exc:
         fail(f"the pyqsm_tpu_torch package is not beside this script ({exc})", 3)
 
@@ -2197,12 +2609,41 @@ def main() -> None:
     rgp["bundle"].clear()  # phase 14's grid and DDA hits: the ranks share the card
     shr = sharded_raycast_path(bm, mt, launch, scene)
     wfp["card_cpu_t_rel"] = small_card_cpu(g3, launch, rgp["small"], shr["ranks"])
+
+    # 16. the sphere-following QSM on the main path's plot: (a) the bench's
+    # walk on its largest tree, (b) the CLI's entry points on that tree's
+    # file, (c) the forest of its trees, alone and over ranks, (d) the card
+    # against the CPU on a small Y-shaped tree
+    torch.cuda.empty_cache()
+    ladder = [walk_tree(sampling, pts, res.growth.labels, t.tree_id, 300_000)
+              for t in res.trees]
+    big = max(range(len(res.trees)), key=lambda i: res.trees[i].n_points)
+    tree, voxel = ladder[big]
+    log("qsm_walk", f"the trees laddered at voxels {[round(v, 4) for _, v in ladder]} m to "
+        f"{[len(t) for t, _ in ladder]} points; the largest, tree {res.trees[big].tree_id} "
+        f"({res.trees[big].n_points} points), walks")
+    zero_launches(bm, mt)
+    walk = qsm_walk_path(tq, Config(), tree)
+    walk_counts = launch_counts(bm, mt)
+    zero_launches(bm, mt)
+    qcli = qsm_cli_path(cli, artifacts, readers, mt, tree)
+    cli_counts = launch_counts(bm, mt)
+    zero_launches(bm, mt)
+    forest = qsm_forest_path(tq, launch, [t for t, _ in ladder])
+    forest_counts = launch_counts(bm, mt)
+    qcc = qsm_card_cpu(tq, args.seed + 2)
+    print(json.dumps({"qsm": {"walk": walk, "cli": {k: {kk: vv for kk, vv in v.items()
+                                                       if kk != "printed"}
+                                                   for k, v in qcli.items()},
+                              "forest": forest, "card_cpu": qcc}}), flush=True)
     paths = {"main (phase 5)": main_counts, "canopy (13a)": cp["counts"],
              "single-tree skeletonize (13b)": single["skeletonize"]["launches"],
              "single-tree canopy_metrics (13b)": single["canopy_metrics"]["launches"],
              "raycast grid (14)": rgp["path_launches"],
              "wavefront (15a-b)": wfp["counts"],
-             "sharded raycast, 4 ranks (15c)": shr["counts"]}
+             "sharded raycast, 4 ranks (15c)": shr["counts"],
+             "sphere walk (16a)": walk_counts, "CLI entry points (16b)": cli_counts,
+             "sphere forest (16c)": forest_counts}
 
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]
@@ -2272,12 +2713,18 @@ def main() -> None:
     ]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+    signal.alarm(0)
+    found = stop_children()
+    log("exit", f"processes this script started that still ran, now stopped: "
+        f"{[f'{pid}: {line[:120]}' for pid, line in found.items()]}; left: {len(descendants())}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
-    signal.alarm(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

@@ -10,7 +10,12 @@ Mirrors the JAX package's layout (``config``, ``state``, ``ops/``,
   tree), ``extract_skeleton_batch``;
 - ``models.canopy.canopy_metrics`` (one tree);
 - ``models.raycast``: ``cast_scene``, ``sun_exposure``, ``sun_sweep``,
-  ``raycast_to_pcd``, ``sparse_cast_with_intersections``, ``mri_slices``.
+  ``raycast_to_pcd``, ``sparse_cast_with_intersections``, ``mri_slices``;
+- ``models.qsm``: ``generate_qsm``, ``sphere_following_qsm``,
+  ``sphere_qsm_forest`` (the sphere-following QSM);
+- ``pipeline.cli``: the console commands' ``main`` functions
+  (``python -m pyqsm_tpu_torch.pipeline.cli`` isolates trees), on
+  ``io.readers`` and ``io.artifacts``.
 
 Four hand-written CUDA kernels (``csrc/``) replace the JAX package's
 Pallas kernels: ``band_matvec``, ``band_matvec_t`` and ``band_matvec_bf16``

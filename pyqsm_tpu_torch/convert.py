@@ -78,3 +78,37 @@ def hits_to_numpy(hits) -> dict:
     """The port's ``Hits`` or ``HitList`` as a dict of numpy arrays keyed by
     field name, the form the JAX package's containers compare against."""
     return {f: getattr(hits, f).cpu().numpy() for f in hits._fields}
+
+
+def seed_block(rows, block_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """A walk's seed front as numpy, the form both packages take: the first
+    ``block_size`` of ``rows`` (int32, -1 padded) and its validity."""
+    rows = np.asarray(rows, np.int32)
+    idx = np.full(block_size, -1, np.int32)
+    idx[:min(len(rows), block_size)] = rows[:block_size]
+    return idx, idx >= 0
+
+
+def front_from_numpy(front: dict, device: str | torch.device = DEFAULT_DEVICE):
+    """The port's ``models.qsm.Front`` from the JAX package's (its fields as
+    a dict, e.g. ``{f: np.asarray(v) for f, v in front._asdict().items()}``):
+    the row block and its validity on ``device``, the scalars as Python
+    numbers."""
+    from pyqsm_tpu_torch.models.qsm import Front
+
+    dev = resolve_device(device)
+    return Front(torch.as_tensor(np.array(front["idx"], np.int32), device=dev),
+                 torch.as_tensor(np.array(front["valid"], bool), device=dev),
+                 float(front["last_radius"]), int(front["branch_order"]), int(front["parent"]))
+
+
+def qsm_result_to_numpy(res) -> dict:
+    """The port's ``QSMResult`` as numpy: each cylinder field under its name,
+    ``found``, ``branch_order`` (per point; the cylinders' orders are under
+    ``cylinder_branch_order``) and ``n_steps``."""
+    out = {f: getattr(res.cylinders, f).cpu().numpy() for f in res.cylinders._fields}
+    out["cylinder_branch_order"] = out.pop("branch_order")
+    out.update(found=res.found.cpu().numpy(), branch_order=res.branch_order.cpu().numpy(),
+               n_steps=int(res.n_steps))
+    return out
+

@@ -1,12 +1,16 @@
 """Geometric utilities on the main path: percentile selection, region
-masks and the PCA-oriented bounding box of the contraction clamp
-(counterparts of ``pyqsm_tpu/ops/geometry.py:21-176``)."""
+masks, the Rodrigues rotation of the cylinder fit and the PCA-oriented
+bounding box of the contraction clamp (counterparts of
+``pyqsm_tpu/ops/geometry.py:21-176``)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from pyqsm_tpu_torch.ops.linalg3 import sym_eig3
+from pyqsm_tpu_torch.ops.neighbors import _sq3, _sqrt
 
 
 def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float,
@@ -46,6 +50,17 @@ def percentile_mask(values: torch.Tensor, mask: torch.Tensor,
     return mask & (values >= lo) & (values <= hi)
 
 
+def crop_mask(points: torch.Tensor, mask: torch.Tensor,
+              minx: float = -math.inf, maxx: float = math.inf,
+              miny: float = -math.inf, maxy: float = math.inf,
+              minz: float | torch.Tensor = -math.inf,
+              maxz: float | torch.Tensor = math.inf) -> torch.Tensor:
+    """Axis-aligned crop of the live rows (bounds inclusive)."""
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    return (mask & (x >= minx) & (x <= maxx) & (y >= miny) & (y <= maxy)
+            & (z >= minz) & (z <= maxz))
+
+
 def zoom_mask(points: torch.Tensor, mask: torch.Tensor, region,
               reverse: bool = False) -> torch.Tensor:
     """Keep (or with ``reverse`` exclude) points inside an AABB region
@@ -57,6 +72,45 @@ def zoom_mask(points: torch.Tensor, mask: torch.Tensor, region,
     if region.shape[1] > 2:
         inside = inside & (points[:, 2] >= lo[2]) & (points[:, 2] <= hi[2])
     return mask & (~inside if reverse else inside)
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    """|v| of [..., 3] rows: XLA's fused square sum, correctly rounded root."""
+    return _sqrt(_sq3(v))[..., None]
+
+
+def _mat3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] @ [..., 3, 3] elementwise (no TF32 on the card), each
+    entry a three-term sum rounded once from float64."""
+    return (a.double()[..., :, :, None] * b.double()[..., None, :, :]).sum(-2).float()
+
+
+def rotation_matrix_from_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation taking direction ``a`` onto ``b`` ([..., 3] each,
+    normalised here): ``I + K + K²·(1 − c)/|v|²`` with ``v = a × b``,
+    ``c = a·b``; parallel inputs give I and antiparallel ones the 180°
+    turn about an axis perpendicular to ``a``."""
+    a = a / torch.clamp(_norm3(a), min=1e-12)
+    b = b / torch.clamp(_norm3(b), min=1e-12)
+    v = torch.linalg.cross(a, b, dim=-1)
+    c = (a.double() * b.double()).sum(-1).float()
+    s2 = _sq3(v)
+    zero = torch.zeros_like(v[..., 0])
+    K = torch.stack([torch.stack([zero, -v[..., 2], v[..., 1]], -1),
+                     torch.stack([v[..., 2], zero, -v[..., 0]], -1),
+                     torch.stack([-v[..., 1], v[..., 0], zero], -1)], -2)
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    scale = (1 - c) / torch.clamp(s2, min=1e-20)
+    R = eye + K + _mat3(K, K) * scale[..., None, None]
+    # antiparallel fallback: 180° about a perpendicular axis
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
+    perp = torch.where((a[..., 0].abs() < 0.9)[..., None], ex, ey)
+    axis = torch.linalg.cross(a, perp, dim=-1)
+    axis = axis / torch.clamp(_norm3(axis), min=1e-12)
+    r180 = 2.0 * axis[..., :, None] * axis[..., None, :] - eye
+    par = torch.where((c > 0)[..., None, None], eye, r180)
+    return torch.where((s2 < 1e-16)[..., None, None], par, R)
 
 
 def obb_axes(points: torch.Tensor, mask: torch.Tensor):

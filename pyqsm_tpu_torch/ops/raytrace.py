@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from pyqsm_tpu_torch.device import resolve_device
 from pyqsm_tpu_torch.ops.mt_raycast import (mt_components, mt_raycast, mt_raycast_plain,
                                             triangle_soa)
 
@@ -161,6 +162,14 @@ def hit_points_list(origins: torch.Tensor, dirs: torch.Tensor, hits: HitList) ->
     return torch.where((hits.tri >= 0)[..., None], p, torch.nan)
 
 
+def _ray_device(x, device) -> torch.device:
+    """A ray generator's device: the one asked for, else that of a tensor
+    input, else the card (``resolve_device``'s default)."""
+    if device is None:
+        return x.device if isinstance(x, torch.Tensor) else resolve_device()
+    return resolve_device(device)
+
+
 def _as_vec(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -172,9 +181,9 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 def pinhole_rays(eye, center, up, fov_deg: float, width_px: int, height_px: int,
                  device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Pinhole camera ray bundle (Open3D ``create_rays_pinhole`` semantics);
-    on ``device``, or on ``eye``'s device when that is a tensor."""
-    if device is None:
-        device = eye.device if isinstance(eye, torch.Tensor) else "cpu"
+    on ``device``, or on ``eye``'s device when that is a tensor, else on
+    the card."""
+    device = _ray_device(eye, device)
     eye, center, up = (_as_vec(x, device) for x in (eye, center, up))
     fwd = _normalize(center - eye)
     right = _normalize(torch.linalg.cross(fwd, up))
@@ -195,9 +204,9 @@ def parallel_rays(lo, hi, direction, nx: int, ny: int, z_offset: float = 1.0,
     """Grid of parallel rays covering the AABB from any direction, laid out
     on the plane perpendicular to it, sized to the scene's bounding sphere
     and set back so every ray starts outside the scene. Per-ray cell area
-    = (2R/nx)·(2R/ny)."""
-    if device is None:
-        device = lo.device if isinstance(lo, torch.Tensor) else "cpu"
+    = (2R/nx)·(2R/ny). On ``device``, or on ``lo``'s device when that is a
+    tensor, else on the card."""
+    device = _ray_device(lo, device)
     lo, hi, direction = (_as_vec(x, device) for x in (lo, hi, direction))
     d = _normalize(direction)
     center = (lo + hi) / 2.0

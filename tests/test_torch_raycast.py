@@ -215,11 +215,11 @@ def test_exposed_surface_area_and_hit_points_match_jax():
 def test_ray_generators_match_jax(kind):
     if kind == "pinhole":
         args = ([1.0, -2.0, 9.0], [0.5, 0.2, 0.0], [0.0, 1.0, 0.0], 90.0, 40, 30)
-        ours = tr.pinhole_rays(*args)
+        ours = tr.pinhole_rays(*args, device="cpu")
         ref = jr.pinhole_rays(*(jnp.asarray(a) if isinstance(a, list) else a for a in args))
     else:
         args = ([-1.0, -2.0, 0.0], [3.0, 1.0, 2.5], [0.3, 0.2, -0.93], 24, 18)
-        ours = tr.parallel_rays(*args, z_offset=1.0)
+        ours = tr.parallel_rays(*args, z_offset=1.0, device="cpu")
         ref = jr.parallel_rays(*args, z_offset=1.0)
     for x, y in zip(ours, ref):  # float32 trig and norms of two libraries
         np.testing.assert_allclose(x.numpy(), _np(y), rtol=0, atol=1e-5 if kind == "parallel"

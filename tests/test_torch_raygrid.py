@@ -120,7 +120,7 @@ def test_image_cast_matches_jax_and_brute(name):
     v, t, args, gj, gt = _view(name)
     ours = tg.image_cast(gt)
     _assert_hits(ours, jg.image_cast(gj))
-    o, d = tr.pinhole_rays(*args)
+    o, d = tr.pinhole_rays(*args, device="cpu")
     brute = tr.cast_rays(o, d, _t(v), _t(t), backend="kernel")
     np.testing.assert_array_equal(ours.count.numpy(), brute.count.numpy())
     np.testing.assert_array_equal(ours.tri.numpy(), brute.tri.numpy())

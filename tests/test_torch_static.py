@@ -37,7 +37,9 @@ REQUIRED = ["ops/band_matvec.py", "ops/cuda_build.py", "ops/mt_raycast.py", "ops
             "ops/raytrace.py", "ops/voxelmesh.py", "ops/raygrid.py", "models/raycast.py",
             "convert.py", "ops/segment.py", "state.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/growth.py", "ops/area.py", "ops/color.py",
-            "ops/cluster.py", "models/canopy.py", "ops/grid3d.py", "parallel/raycast.py"]
+            "ops/cluster.py", "models/canopy.py", "ops/grid3d.py", "parallel/raycast.py",
+            "ops/normals.py", "ops/ransac.py", "models/qsm.py", "io/readers.py", "io/artifacts.py",
+            "pipeline/cli.py"]
 
 
 def test_import_scan_covers_every_port_module():
@@ -57,18 +59,24 @@ def test_every_kernel_source_is_registered_for_the_build():
 
 def _entry_points():
     from pyqsm_tpu_torch import convert, state
-    from pyqsm_tpu_torch.models import canopy, isolation, plot_pipeline, raycast, skeleton
+    from pyqsm_tpu_torch.io import artifacts
+    from pyqsm_tpu_torch.models import canopy, isolation, plot_pipeline, qsm, raycast, skeleton
     from pyqsm_tpu_torch.parallel import mesh
+    from pyqsm_tpu_torch.pipeline import cli
 
     return [plot_pipeline.process_plot, isolation.build_trees, skeleton.extract_skeleton_batch,
             convert.state_from_numpy, convert.mesh_from_numpy, raycast.cast_scene,
             raycast.sun_exposure, raycast.sun_sweep, raycast.raycast_to_pcd,
             raycast.sparse_cast_with_intersections, raycast.mri_slices,
             mesh.make_mesh, mesh.tree_points_mesh, mesh.launch, state.PointCloud.create,
-            skeleton.extract_skeleton, skeleton.skeletonize, canopy.canopy_metrics]
+            skeleton.extract_skeleton, skeleton.skeletonize, canopy.canopy_metrics,
+            qsm.sphere_following_qsm, qsm.sphere_qsm_forest, qsm.generate_qsm,
+            convert.front_from_numpy, artifacts.load_artifact, artifacts.load_cylinders,
+            cli.tree_isolation_main, cli.qsm_generation_main, cli.canopy_metrics_main,
+            cli.raycast_main]
 
 
-@pytest.mark.parametrize("fn", range(18))
+@pytest.mark.parametrize("fn", range(28))
 def test_entry_points_default_to_cuda(fn):
     f = _entry_points()[fn]
     assert inspect.signature(f).parameters["device"].default == "cuda", f.__qualname__
@@ -96,6 +104,38 @@ def test_cuda_without_card_raises():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         cast_scene(sphere_mesh([0.0, 0, 0], 1.0, device="cpu"))
+
+
+def test_ray_generators_ask_for_the_card():
+    """``pinhole_rays`` and ``parallel_rays`` given lists put their rays on
+    the card (here: raise without one); ``device`` or a tensor input
+    decides otherwise."""
+    from pyqsm_tpu_torch.ops import raytrace as tr
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cam = ([0.0, 0.0, 5.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], 60.0, 8, 6)
+    box = ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 0.0, -1.0], 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tr.pinhole_rays(*cam)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tr.parallel_rays(*box)
+    assert tr.pinhole_rays(*cam, device="cpu")[1].device.type == "cpu"
+    assert tr.parallel_rays(torch.zeros(3), *box[1:])[0].device.type == "cpu"
+
+
+def test_qsm_entry_points_without_card_raise():
+    from pyqsm_tpu_torch.models import qsm
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    pts = torch.zeros(8, 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qsm.generate_qsm(pts, torch.ones(8, dtype=torch.bool))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qsm.sphere_qsm_forest(pts[None], torch.ones(1, 8, dtype=torch.bool),
+                              torch.zeros(1, 4, dtype=torch.int32),
+                              torch.ones(1, 4, dtype=torch.bool), [0.3])
 
 
 def _mesh_device_rank(mesh=None):
