@@ -145,7 +145,36 @@ Phases, each printing lines with the elapsed seconds:
    single-device forest bit for bit); (d) the walk on a small Y-shaped
    tree on the card and on the CPU from the same draws: found, branch
    orders, steps, cylinder counts, orders and parents equal, floats
-   within 1e-4.
+   within 1e-4;
+17. the batch driver on phase 5's plot written as two overlapping text
+   scans (``plot_1.xyz``: x < 12 m, ``plot_2.xyz``: x > 4 m; the x = 8 m
+   column of trees is in both; each row's generator part, trunk = wood 0,
+   canopy = leaf 1, carried beside it): (a) the native ``read_xyz_stream``
+   (the port's own ``csrc/pointio.cpp``, built with g++) on each scan, its
+   rows equal to numpy ``read_xyz`` bit for bit, MB/s of both, and
+   ``StreamingVoxelizer`` at 0.03 m, whose centroids equal the numpy
+   path's as a set on 30 000 rows; (b) ``loop_over_files`` (the seed is
+   the number after ``plot_``; loader ``read_xyz_stream``) over a ``StagedPipeline``
+   of ``qsm`` (``process_plot``), ``segment`` (on the scan's largest tree
+   laddered as 16a: ``compute_features`` k = 25, ``classify_wood_leaf``
+   trained on a seeded 2 % of its rows, the three graph masks) and
+   ``recover`` (onto the tree's full rows: ``recover_by_trace``,
+   ``recover_details``, ``transfer_attributes``, ``expand_to_original``),
+   with the counters set to 0 just before; seconds, peak memory and
+   ``band_matvec`` launches a stage; no seed's error, every checkpoint
+   written, every value finite, val accuracy ≥ 0.9; (c) seed 1 again from
+   its ``qsm`` checkpoint (``start="segment"``), equal to the
+   uninterrupted run bit for bit; (d) ``merge_labeled_scans`` of the two
+   scans' labels: each tree both scans hold ends with one label, host
+   reads (``models/joining.SYNCS``); ``voxel_overlap_mask`` of scan 2
+   against scan 1 holds every row both scans hold; (e) ``viz_main`` on
+   16a's tree with ``--labels`` from ``tree_isolation_main``'s artifact
+   and a 0.3 m mesh: the page embeds the points it printed and the mesh's
+   triangles; (f) on phase 4's plot the card against the CPU: features
+   (gate equal, floats within the parity test's tolerance), the classifier
+   trained on the same features (loss within 1e-4, predictions equal but
+   on near-ties, counted), the graph masks, ``label_adjacency`` and
+   ``recover_details`` equal.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -180,6 +209,7 @@ BF16_TC_FLOP_S = 989e12  # dense bf16 tensor-core rate
 N_TREES = 8  # the bench's plot layout
 MT_OPS_PER_PAIR = 46  # float32 ops per ray-triangle pair in csrc/mt_raycast.cu
 BUDGET_S = 1000  # wall-clock limit of the whole script, build included
+VOXEL_CHECK_ROWS = 30_000  # rows of phase 17a's numpy voxelizer check
 SHARDED_RANKS = 4  # ranks of the sharded path (phase 11)
 DDA_RAY_TILE = 1 << 20  # rays a tile of phase 14's 10⁶-ray DDA cast: the whole bundle
 
@@ -2337,6 +2367,492 @@ def qsm_card_cpu(tq, seed: int) -> dict:
     return out
 
 
+def write_scans(pts_np, per: int, n_trunk: int, d) -> dict:
+    """Phase 17's two overlapping text scans of phase 5's plot:
+    ``plot_1.xyz`` (rows with x < 12 m) and ``plot_2.xyz`` (x > 4 m), each
+    row's generator part carried beside it (trunk ring 0 = wood, canopy 1 =
+    leaf) with its tree of the generator and whether the other scan holds
+    it too."""
+    import numpy as np
+
+    from pyqsm_tpu_torch.io import readers
+
+    rows = np.arange(len(pts_np))
+    part = ((rows % per) >= n_trunk).astype(np.int32)
+    gen_tree = (rows // per).astype(np.int32)
+    x = pts_np[:, 0]
+    scans = {}
+    for seed, keep in (("1", x < 12.0), ("2", x > 4.0)):
+        path = d / f"plot_{seed}.xyz"
+        readers.write_xyz(path, pts_np[keep])
+        scans[seed] = dict(path=path, part=part[keep], tree=gen_tree[keep],
+                           both=((x > 4.0) & (x < 12.0))[keep])
+    return scans
+
+
+def read_scan(path):
+    """The driver's loader: the native streaming reader's batches joined."""
+    import numpy as np
+
+    from pyqsm_tpu_torch.io.native import read_xyz_stream
+
+    return np.concatenate(list(read_xyz_stream(path)))
+
+
+def ingestion_path(native, readers, scans: dict) -> dict:
+    """Phase 17a: ``read_xyz_stream`` on each scan against the numpy
+    ``read_xyz`` (rows bit for bit), MB/s of both; ``StreamingVoxelizer``
+    at 0.03 m against the numpy path's centroids (as a set, on scan 1's
+    first ``VOXEL_CHECK_ROWS`` rows)."""
+    import numpy as np
+
+    out = {}
+    if not native.native_available():
+        fail("the native ingestion library did not build")
+    for seed, sc in scans.items():
+        mb = sc["path"].stat().st_size / 1e6
+        t0 = time.perf_counter()
+        rows = read_scan(sc["path"])
+        s_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = readers.read_xyz(sc["path"]).points
+        s_numpy = time.perf_counter() - t0
+        equal = rows.shape == ref.shape and bool(np.array_equal(rows, ref))
+        t0 = time.perf_counter()
+        cent = list(native.read_xyz_stream(sc["path"], voxel=0.03))[0]
+        s_vox = time.perf_counter() - t0
+        out[seed] = dict(rows=len(rows), mb=mb, native_s=s_native, numpy_s=s_numpy,
+                         native_mb_s=mb / s_native, numpy_mb_s=mb / s_numpy, equal=equal,
+                         voxels=len(cent), voxelize_s=s_vox, voxelize_mb_s=mb / s_vox)
+        if seed == "1":
+            # the numpy path (the plain version) loops over voxels in Python:
+            # both paths on the scan's first VOXEL_CHECK_ROWS rows
+            part = rows[:VOXEL_CHECK_ROWS]
+            fast, slow = native.StreamingVoxelizer(0.03), native.StreamingVoxelizer(0.03)
+            slow._lib = None
+            fast.add(part)
+            t0 = time.perf_counter()
+            slow.add(part)
+            out[seed]["voxelize_numpy_s"] = time.perf_counter() - t0
+            ref_c, got_c = slow.centroids(), fast.centroids()
+
+            def as_set(a):
+                return a[np.lexsort(a.T[::-1])]
+
+            out[seed]["centroids_equal"] = ref_c.shape == got_c.shape and bool(
+                np.array_equal(as_set(ref_c), as_set(got_c)))
+        log("ingest", f"plot_{seed}.xyz {mb:.1f} MB, {len(rows)} rows: read_xyz_stream "
+            f"{s_native:.3f}s ({mb / s_native:.1f} MB/s) vs numpy read_xyz {s_numpy:.3f}s "
+            f"({mb / s_numpy:.1f} MB/s), rows equal {equal}; StreamingVoxelizer 0.03 m "
+            f"{len(cent)} voxels in {s_vox:.3f}s ({mb / s_vox:.1f} MB/s)"
+            + (f"; on its first {min(len(rows), VOXEL_CHECK_ROWS)} rows the numpy path "
+               f"{out[seed]['voxelize_numpy_s']:.3f}s, centroids equal "
+               f"{out[seed]['centroids_equal']}" if seed == "1" else ""))
+        if not equal:
+            fail(f"plot_{seed}.xyz: the native rows differ from numpy read_xyz")
+    if not out["1"]["centroids_equal"]:
+        fail("StreamingVoxelizer: the native centroids differ from the numpy path's")
+    return out
+
+
+def ladder_rows(sampling, pts, rows, walk_points: int):
+    """A tree's rows laddered as ``walk_tree`` (voxel 0.03 m grown 1.3×
+    until at most ``walk_points`` live rows): the full rows, the compacted
+    representatives, each full row's representative in that compaction and
+    each representative's full row."""
+    import torch
+
+    full = pts[rows]
+    ones = torch.ones(full.shape[0], dtype=torch.bool, device=full.device)
+    voxel = 0.03
+    p2, m2, trace = sampling.voxel_downsample(full, voxel, ones)
+    while int(m2.sum()) > walk_points and voxel < 0.5:
+        voxel *= 1.3
+        p2, m2, trace = sampling.voxel_downsample(full, voxel, ones)
+    pos = torch.cumsum(m2.to(torch.int64), 0) - 1
+    rep_rows = torch.nonzero(m2).flatten()
+    return full, p2[m2], pos[trace.long()], rep_rows, voxel
+
+
+def driver_stages(mods, plot_kw, iso_cfg, cfg, data, gen, stats, seed: str):
+    """The three stages of phase 17b over one scan (``data``: its rows,
+    ``gen``: their generator parts and trees): ``qsm`` (``process_plot``),
+    ``segment`` (features, the trained wood/leaf classifier and the graph
+    masks on the largest tree, laddered) and ``recover`` (back onto that
+    tree's full rows). Each stage adds to the state and records its
+    seconds, peak memory and ``band_matvec`` launches in ``stats``."""
+    import numpy as np
+    import torch
+
+    bm, pp, sampling, feat, seg, gf, rec = (mods[k] for k in (
+        "bm", "pp", "sampling", "features", "segmentation", "graph_features",
+        "reconstruction"))
+    dev = torch.device(mods["device"])
+    pts = torch.as_tensor(data.astype(np.float32), device=dev)
+
+    def timed(name, fn):
+        def run(state):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            before = bm.LAUNCHES
+            t0 = time.perf_counter()
+            out = fn(dict(state))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            stats.setdefault(seed, {})[name] = dict(
+                s=time.perf_counter() - t0, band_matvec_launches=bm.LAUNCHES - before,
+                peak_gib=(torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda"
+                          else 0.0))
+            return out
+        return run
+
+    def qsm(state):
+        mask = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+        res = pp.process_plot(pts, mask, cfg, iso_cfg, **plot_kw, device=dev)
+        c = [t.cylinders for t in res.trees]
+        state.update(
+            labels=res.growth.labels, order=res.growth.order,
+            tree_ids=torch.tensor([t.tree_id for t in res.trees], device=dev),
+            tree_points=torch.tensor([t.n_points for t in res.trees], device=dev),
+            cyl_tree=torch.cat([torch.full_like(x.radius, t.tree_id, dtype=torch.int32)
+                                for x, t in zip(c, res.trees)]),
+            cyl_center=torch.cat([x.center for x in c]), cyl_axis=torch.cat([x.axis for x in c]),
+            cyl_radius=torch.cat([x.radius for x in c]), cyl_height=torch.cat([x.height for x in c]),
+            cyl_mask=torch.cat([x.mask for x in c]))
+        return state
+
+    def largest(state):
+        ids = torch.as_tensor(state["tree_ids"], device=dev)
+        npts = torch.as_tensor(state["tree_points"], device=dev)
+        tree_id = int(ids[int(torch.argmax(npts))])
+        labels = torch.as_tensor(state["labels"], device=dev)
+        rows = torch.nonzero(labels == tree_id).flatten()
+        return tree_id, rows
+
+    def segment(state):
+        tree_id, rows = largest(state)
+        full, coarse, _, rep_rows, voxel = ladder_rows(sampling, pts, rows, 300_000)
+        n = coarse.shape[0]
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        part = torch.as_tensor(gen["part"], device=dev)[rows][rep_rows].to(torch.int32)
+        order = torch.as_tensor(state["order"], device=dev)[rows][rep_rows]
+        feats = feat.compute_features(coarse, ones, k=25)
+        rng = np.random.default_rng(17)
+        labeled = np.sort(rng.choice(n, max(n // 50, 2), replace=False))
+        labeled_t = torch.as_tensor(labeled, device=dev)
+        preds, clf, m = seg.classify_wood_leaf(coarse, ones, labeled_t, part[labeled_t], k=25,
+                                               device=dev)
+        leaf_deg, degree = gf.leaf_mask_by_degree(coarse, ones)
+        sparse = gf.exclude_dense_areas(coarse, ones)
+        leaf_order = gf.leaf_mask_by_order_diff(coarse, order, ones)
+        state.update(
+            tree_id=np.asarray(tree_id, np.int64), voxel=np.asarray(voxel, np.float64),
+            coarse=coarse,
+            planarity=feats["planarity"], linearity=feats["linearity"], preds=preds,
+            part=part, degree=degree, leaf_deg=leaf_deg, sparse=sparse,
+            leaf_order=leaf_order, loss=np.asarray(m["loss"], np.float64),
+            train_acc=np.asarray(m["train_acc"], np.float64),
+            val_acc=np.asarray(m["val_acc"], np.float64),
+            pred_acc=np.asarray(float((preds == part).float().mean()), np.float64))
+        return state
+
+    def recover(state):
+        tree_id, rows = largest(state)
+        full, coarse, ctrace, rep_rows, _ = ladder_rows(sampling, pts, rows, 300_000)
+        preds = torch.as_tensor(state["preds"], device=dev)
+        nf = full.shape[0]
+        fones = torch.ones(nf, dtype=torch.bool, device=dev)
+        cones = torch.ones(coarse.shape[0], dtype=torch.bool, device=dev)
+        leaf = preds == 1
+        by_trace = rec.recover_by_trace(leaf, ctrace, fones)
+        by_knn = rec.recover_details(coarse, leaf, full, fones)
+        vals, matched = rec.transfer_attributes(coarse, preds, cones, full, fones)
+        plan_full = feat.expand_to_original(coarse, torch.as_tensor(state["planarity"],
+                                                                    device=dev),
+                                            cones, full, fones)
+        part_full = torch.as_tensor(gen["part"], device=dev)[rows]
+        state.update(by_trace=by_trace, by_knn=by_knn, transferred=vals, matched=matched,
+                     planarity_full=plan_full,
+                     full_acc=np.asarray(float((vals == part_full).float().mean()), np.float64))
+        return state
+
+    pipe = mods["driver"].StagedPipeline(mods["workdir"], seed=seed)
+    for name, fn in (("qsm", qsm), ("segment", segment), ("recover", recover)):
+        pipe.add_stage(name, timed(name, fn))
+    return pipe
+
+
+def _np(v):
+    import numpy as np
+    import torch
+
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def state_finite(state: dict) -> bool:
+    import numpy as np
+
+    return all(bool(np.isfinite(a).all()) for a in (_np(v) for v in state.values())
+               if a.dtype.kind == "f")
+
+
+def batch_driver_path(mods, scans: dict, plot_kw, iso_cfg, cfg) -> dict:
+    """Phase 17b-c: ``loop_over_files`` over the scans' folder runs the
+    staged pipeline on each seed; then seed 1 again from its ``qsm``
+    checkpoint (``start="segment"``), whose final state must equal the
+    uninterrupted run's bit for bit."""
+    import numpy as np
+
+    driver = mods["driver"]
+    stats: dict = {}
+
+    def run_seed(seed, data):
+        return driver_stages(mods, plot_kw, iso_cfg, cfg, data["plot"], scans[seed], stats,
+                             seed).run()
+
+    folder = scans["1"]["path"].parent
+    t0 = time.perf_counter()
+    results, errors = driver.loop_over_files(run_seed, [folder], seed_pattern=r"plot_(\d+)",
+                                             loaders={"plot": read_scan})
+    total_s = time.perf_counter() - t0
+    for seed in sorted(results):
+        st, r = stats[seed], results[seed]
+        log("driver", f"plot_{seed}: " + "; ".join(
+            f"{k} {v['s']:.3f}s peak {v['peak_gib']:.3f} GiB band_matvec launches "
+            f"{v['band_matvec_launches']}" for k, v in st.items())
+            + f"; trees {len(_np(r['tree_ids']))}, the largest (tree {int(r['tree_id'])}) "
+            f"laddered at {float(r['voxel']):.4f} m to {len(_np(r['coarse']))} rows; "
+            f"classifier loss {float(r['loss']):.4f} train_acc {float(r['train_acc']):.4f} "
+            f"val_acc {float(r['val_acc']):.4f}, all rows {float(r['pred_acc']):.4f}; "
+            f"leaf by degree {int(_np(r['leaf_deg']).sum())}, kept outside dense areas "
+            f"{int(_np(r['sparse']).sum())}, leaf by order {int(_np(r['leaf_order']).sum())}; "
+            f"recovered leaf rows by trace {int(_np(r['by_trace']).sum())}, by kNN "
+            f"{int(_np(r['by_knn']).sum())}, transferred {int(_np(r['matched']).sum())} of "
+            f"{len(_np(r['matched']))} (full-row accuracy {float(r['full_acc']):.4f})")
+    log("driver", f"loop_over_files {total_s:.3f}s, errors {sorted(errors)}")
+    if errors:
+        fail(f"loop_over_files: seeds failed: {errors}")
+    if sorted(results) != ["1", "2"]:
+        fail(f"loop_over_files ran seeds {sorted(results)}, expected 1 and 2")
+    missing = [f"{s}_{k}.npz" for s in results for k in ("qsm", "segment", "recover")
+               if not (mods["workdir"] / f"{s}_{k}.npz").exists()]
+    if missing:
+        fail(f"checkpoints not written: {missing}")
+    for seed, r in results.items():
+        if not state_finite(r):
+            fail(f"plot_{seed}: a non-finite value in the pipeline's state")
+        if float(r["val_acc"]) < 0.9:
+            fail(f"plot_{seed}: wood/leaf val accuracy {float(r['val_acc']):.4f} < 0.9")
+    # 17c: resume seed 1 at 'segment' from the 'qsm' checkpoint
+    data = read_scan(scans["1"]["path"])
+    rstats: dict = {}
+    t0 = time.perf_counter()
+    resumed = driver_stages(mods, plot_kw, iso_cfg, cfg, data, scans["1"], rstats, "1").run(
+        start="segment")
+    resume_s = time.perf_counter() - t0
+    ref = results["1"]
+    same_keys = set(resumed) == set(ref)
+    diff = [k for k in ref if k in resumed
+            and not (_np(ref[k]).dtype == _np(resumed[k]).dtype
+                     and np.array_equal(_np(ref[k]), _np(resumed[k])))]
+    log("resume", f"plot_1 from its qsm checkpoint: {resume_s:.3f}s ("
+        + "; ".join(f"{k} {v['s']:.3f}s" for k, v in rstats["1"].items())
+        + f"); keys equal {same_keys}, arrays differing bit-wise {diff}")
+    if not same_keys or diff:
+        fail(f"the resumed pipeline differs from the uninterrupted run: {diff}")
+    return dict(stats=stats, total_s=total_s, resume_s=resume_s, resume_stats=rstats["1"],
+                results=results)
+
+
+def joining_path(joining, rec, results: dict, scans: dict, device) -> dict:
+    """Phase 17d: ``merge_labeled_scans`` of the two scans' isolation labels
+    (threshold 0.35): every tree of the x = 8 m column, which both scans
+    hold, ends with one label; ``voxel_overlap_mask`` of scan 2 against
+    scan 1 holds every row scan 1 holds too."""
+    import numpy as np
+    import torch
+
+    pts = {s: torch.as_tensor(read_scan(scans[s]["path"]).astype(np.float32), device=device)
+           for s in ("1", "2")}
+    labels = {s: torch.as_tensor(_np(results[s]["labels"]), device=device) for s in ("1", "2")}
+    masks = {s: torch.ones(pts[s].shape[0], dtype=torch.bool, device=device) for s in pts}
+    joining.SYNCS = 0
+    t0 = time.perf_counter()
+    mp, ml, mm = joining.merge_labeled_scans([pts["1"], pts["2"]], [labels["1"], labels["2"]],
+                                             [masks["1"], masks["2"]], threshold=0.35)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merge_reads = joining.SYNCS
+    ml = ml.cpu().numpy()
+    before = sorted(set(_np(labels["1"])[_np(labels["1"]) >= 0].tolist())) + sorted(
+        set(_np(labels["2"])[_np(labels["2"]) >= 0].tolist()))
+    n1 = pts["1"].shape[0]
+    tree = np.concatenate([scans["1"]["tree"], scans["2"]["tree"]])
+    both = np.concatenate([scans["1"]["both"], scans["2"]["both"]])
+    column = [t for t in range(N_TREES) if 4.0 < (t % 3) * 8.0 < 12.0]
+    per_tree = {t: sorted(set(ml[(tree == t) & both & (ml >= 0)].tolist())) for t in column}
+    ok_join = all(len(v) == 1 for v in per_tree.values()) and all(
+        ((tree[:n1] == t) & both[:n1] & (ml[:n1] >= 0)).any()
+        and ((tree[n1:] == t) & both[n1:] & (ml[n1:] >= 0)).any() for t in column)
+    t0 = time.perf_counter()
+    over = rec.voxel_overlap_mask(pts["2"], masks["2"], pts["1"], masks["1"])
+    over = over.cpu().numpy()
+    overlap_s = time.perf_counter() - t0
+    need = scans["2"]["both"]
+    complete = bool(over[need].all())
+    out = dict(merge_s=merge_s, host_reads=merge_reads, labels_before=len(before),
+               labels_after=len(set(ml[ml >= 0].tolist())), column_labels=per_tree,
+               overlap_s=overlap_s, overlap_rows=int(over.sum()), overlap_needed=int(need.sum()),
+               overlap_complete=complete)
+    log("join", f"merge_labeled_scans of {n1} + {pts['2'].shape[0]} rows: {merge_s:.3f}s, "
+        f"{len(before)} labels before, {out['labels_after']} after, host reads {merge_reads}; "
+        f"labels of the x = 8 m column's trees (both scans) {per_tree}; voxel_overlap_mask "
+        f"{overlap_s:.3f}s, {out['overlap_rows']} rows of scan 2 in scan 1's voxels, all "
+        f"{out['overlap_needed']} shared rows among them: {complete}")
+    if not ok_join:
+        fail(f"a tree both scans hold does not end with one label: {per_tree}")
+    if not complete:
+        fail("voxel_overlap_mask misses rows of scan 2 that scan 1 holds")
+    return out
+
+
+def viz_path(cli, readers, vm, tree, device) -> dict:
+    """Phase 17e: ``viz_main`` on the largest tree's ``.npz`` with
+    ``--labels`` from ``tree_isolation_main``'s artifact and a 0.3 m mesh:
+    the page embeds the point count it printed and the mesh's triangles."""
+    import io
+    import re
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "tree.npz"
+        readers.write_npz(path, tree)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_iso = cli.tree_isolation_main([str(path), "-o", d, "--base-min-points", "200",
+                                              "--low-pctile", "4"], device=device)
+            t0 = time.perf_counter()
+            rc = cli.viz_main([str(path), "-o", d, "--labels", str(Path(d) / "tree_trees.npz"),
+                               "--mesh-voxel", "0.3"], device=device)
+            s = time.perf_counter() - t0
+        printed = buf.getvalue().strip().splitlines()[-1]
+        html_path = Path(d) / "tree_viewer.html"
+        html = html_path.read_text() if html_path.exists() else ""
+        size_mb = len(html) / 1e6
+    m = re.search(r"const LAYERS=(\[.*?\]), CENTER=", html, re.S)
+    layers = json.loads(m.group(1)) if m else []
+    n_printed = int(re.search(r"\(([\d,]+) points\)", printed).group(1).replace(",", ""))
+    t = torch.as_tensor(tree, device=device)
+    n_tri = vm.poisson_like_mesh(t, torch.ones(t.shape[0], dtype=torch.bool, device=device),
+                                 voxel=0.3).n_triangles()
+    kinds = [x["kind"] for x in layers]
+    out = dict(rc=rc, rc_isolation=rc_iso, s=s, html_mb=size_mb, points=n_printed,
+               layers=kinds, mesh_triangles=n_tri)
+    log("viz", f"viz_main rc {rc} in {s:.3f}s: {printed}; page {size_mb:.2f} MB, layers {kinds}, "
+        f"{layers[0]['n'] if layers else 0} points and "
+        f"{layers[1]['n'] // 3 if len(layers) > 1 else 0} triangles embedded (mesh {n_tri})")
+    if rc != 0 or rc_iso != 0 or kinds != ["points", "mesh"] or layers[0]["n"] != n_printed \
+            or layers[1]["n"] != 3 * n_tri or n_printed != len(tree):
+        fail("viz_main's page does not embed the points and triangles it made")
+    return out
+
+
+def segment_card_cpu(mods, small, devices=("cuda", "cpu")) -> dict:
+    """Phase 17f: on phase 4's two-tree plot, the card against the CPU:
+    features (gate equal, floats within the parity test's tolerance), the
+    classifier trained from the same initial weights and split on the same
+    features (loss within 1e-4 relative, logits within 0.05, predictions
+    equal but on near-ties, counted), the graph masks, ``label_adjacency``
+    and ``recover_details`` equal."""
+    import numpy as np
+    import torch
+
+    feat, seg, gf, joining, rec = (mods[k] for k in ("features", "segmentation",
+                                                    "graph_features", "joining",
+                                                    "reconstruction"))
+    tree = (np.arange(len(small)) >= len(small) // 2).astype(np.int32)
+    labels = 2 * tree + (small[:, 2] > 2.5)  # each trunk's lower and upper half
+    rng = np.random.default_rng(4)
+    order = (small[:, 2] * 4).astype(np.int32) + rng.integers(0, 4, len(small)).astype(np.int32)
+    out = {}
+    res = {}
+    card, cpu = devices
+    for dev in devices:
+        p = torch.as_tensor(small, device=dev)
+        ones = torch.ones(len(small), dtype=torch.bool, device=dev)
+        f = feat.compute_features(p, ones, k=25)
+        res[dev] = dict(
+            feats={k: v.cpu().numpy() for k, v in f.items()},
+            deg=gf.leaf_mask_by_degree(p, ones, radius=0.1)[0].cpu().numpy(),
+            sparse=gf.exclude_dense_areas(p, ones, radius=0.1).cpu().numpy(),
+            order=gf.leaf_mask_by_order_diff(p, torch.as_tensor(order, device=dev), ones,
+                                             radius=0.1).cpu().numpy(),
+            adj=joining.label_adjacency(p, torch.as_tensor(labels, device=dev), ones,
+                                        subsample_every=3),
+            details=rec.recover_details(p[::3], torch.as_tensor(small[::3, 2] > 2.0,
+                                                                device=dev),
+                                        p, ones, radius=0.05).cpu().numpy())
+    a, b = res[card]["feats"], res[cpu]["feats"]
+    gate = bool(np.array_equal(a["PCA1"] > 0, b["PCA1"] > 0))
+    worst, close_min = 0.0, 1.0
+    for k in b:
+        scale = max(float(np.abs(b[k]).max()), 1e-12)
+        worst = max(worst, float(np.abs(a[k] - b[k]).max()) / scale)
+        live = b["PCA1"] > 0
+        close_min = min(close_min, float((np.abs(a[k] - b[k]) <= 2e-5 * np.abs(b[k]))[live].mean()))
+    # the classifier from the same features, initial weights and split
+    x = np.stack([b[k] for k in feat.FEATURE_NAMES], 1)
+    lmask = np.zeros(len(small), bool)
+    lmask[::10] = True
+    preds, logits, metrics = {}, {}, {}
+    for dev in devices:
+        clf, m = seg.train_classifier(torch.as_tensor(x), torch.as_tensor(tree),
+                                      torch.as_tensor(lmask), device=dev)
+        xt = torch.as_tensor(x, device=dev)
+        preds[dev] = seg.predict(clf, xt).cpu().numpy()
+        with torch.no_grad():
+            logits[dev] = clf.mlp((xt - clf.feat_mean) / clf.feat_std).cpu().numpy()
+        metrics[dev] = m
+    # 300 Adam steps part the two devices' weights (each gradient divided by
+    # its own running RMS amplifies the float32 sums' rounding): a row is a
+    # near-tie when its CPU margin is within twice the largest logit
+    # difference between the devices
+    dlogit = float(np.abs(logits[card] - logits[cpu]).max())
+    top2 = np.sort(logits[cpu], axis=1)[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0]) <= 2 * dlogit
+    differ = preds[card] != preds[cpu]
+    masks_equal = {k: bool(np.array_equal(res[card][k], res[cpu][k]))
+                   for k in ("deg", "sparse", "order", "details")}
+    adj_equal = all(bool(torch.equal(getattr(res[card]["adj"], f).cpu(),
+                                     getattr(res[cpu]["adj"], f).cpu()))
+                    for f in ("min_dist", "adjacent", "labels"))
+    out = dict(feature_gate_equal=gate, feature_max_err_of_scale=worst,
+               feature_rows_within_2e5=close_min, near_ties=int(tie.sum()),
+               predictions_differ=int(differ.sum()), differ_outside_ties=int((differ & ~tie).sum()),
+               loss={d: metrics[d]["loss"] for d in metrics},
+               logit_max_abs_diff=dlogit,
+               masks_equal=masks_equal, adjacency_equal=adj_equal)
+    log("seg_card_cpu", f"two-tree plot: features gate equal {gate}, max err {worst:.3e} of "
+        f"scale, rows within 2e-5 ≥ {close_min:.4f}; classifier loss card/cpu "
+        f"{metrics[card]['loss']:.6f}/{metrics[cpu]['loss']:.6f}, logits within "
+        f"{out['logit_max_abs_diff']:.3e}, near-ties {int(tie.sum())}, predictions differing "
+        f"{int(differ.sum())} ({int((differ & ~tie).sum())} outside near-ties); masks equal "
+        f"{masks_equal}; label_adjacency equal {adj_equal}")
+    if not gate or worst > 2e-3 or close_min < 0.93:
+        fail("features: the card and the CPU differ beyond the parity test's tolerance")
+    loss_rel = abs(metrics[card]["loss"] - metrics[cpu]["loss"]) / metrics[cpu]["loss"]
+    if (differ & ~tie).any() or dlogit > 0.05 or loss_rel > 1e-4:
+        fail("the classifier's predictions, logits or loss differ between the card and the CPU")
+    if not all(masks_equal.values()) or not adj_equal:
+        fail("graph masks, label_adjacency or recover_details differ between card and CPU")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--points", type=int, default=2_000_000,
@@ -2381,6 +2897,10 @@ def main() -> None:
         from pyqsm_tpu_torch.models import qsm as tq
         from pyqsm_tpu_torch.ops import sampling
         from pyqsm_tpu_torch.pipeline import cli
+        from pyqsm_tpu_torch.io import native
+        from pyqsm_tpu_torch.models import graph_features, joining, reconstruction, segmentation
+        from pyqsm_tpu_torch.ops import features
+        from pyqsm_tpu_torch.pipeline import driver
     except ImportError as exc:
         fail(f"the pyqsm_tpu_torch package is not beside this script ({exc})", 3)
 
@@ -2636,6 +3156,44 @@ def main() -> None:
                                                        if kk != "printed"}
                                                    for k, v in qcli.items()},
                               "forest": forest, "card_cpu": qcc}}), flush=True)
+
+    # 17. the batch driver on phase 5's plot written as two overlapping text
+    # scans: (a) native ingestion, (b) loop_over_files over a staged
+    # pipeline (qsm → segment → recover), (c) its resume, (d) joining the
+    # scans, (e) viz_main, (f) the card against the CPU on phase 4's plot
+    torch.cuda.empty_cache()
+    import tempfile
+    from pathlib import Path
+
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d17:
+        d17 = Path(d17)
+        (d17 / "scans").mkdir()
+        per = args.points // N_TREES
+        scans = write_scans(pts.cpu().numpy(), per, per // 2, d17 / "scans")
+        log("ingest", f"wrote {[sc['path'].name for sc in scans.values()]} "
+            f"({[len(sc['part']) for sc in scans.values()]} rows) in "
+            f"{time.perf_counter() - t17:.2f}s")
+        ing = ingestion_path(native, readers, scans)
+        mods = dict(bm=bm, pp=pp, sampling=sampling, features=features,
+                    segmentation=segmentation, graph_features=graph_features,
+                    reconstruction=reconstruction, joining=joining, driver=driver,
+                    device="cuda",
+                    workdir=d17 / "checkpoints")
+        zero_launches(bm, mt)
+        drv = batch_driver_path(mods, scans, plot_kw, iso_cfg, Config())
+        driver_counts = launch_counts(bm, mt)
+        jn17 = joining_path(joining, reconstruction, drv["results"], scans, "cuda")
+    viz17 = viz_path(cli, readers, vm, tree, "cuda")
+    scc = segment_card_cpu(mods, small)
+    log("driver", f"phase 17 in {time.perf_counter() - t17:.2f}s")
+    print(json.dumps({"driver": {"ingest": ing, "stages": drv["stats"], "loop_s": drv["total_s"],
+                                 "resume_s": drv["resume_s"], "resume": drv["resume_stats"],
+                                 "classifier": {s: {k: float(r[k]) for k in (
+                                     "loss", "train_acc", "val_acc", "pred_acc", "full_acc")}
+                                     for s, r in drv["results"].items()},
+                                 "join": jn17, "viz": viz17, "card_cpu": scc}}, default=str),
+          flush=True)
     paths = {"main (phase 5)": main_counts, "canopy (13a)": cp["counts"],
              "single-tree skeletonize (13b)": single["skeletonize"]["launches"],
              "single-tree canopy_metrics (13b)": single["canopy_metrics"]["launches"],
@@ -2643,7 +3201,7 @@ def main() -> None:
              "wavefront (15a-b)": wfp["counts"],
              "sharded raycast, 4 ranks (15c)": shr["counts"],
              "sphere walk (16a)": walk_counts, "CLI entry points (16b)": cli_counts,
-             "sphere forest (16c)": forest_counts}
+             "sphere forest (16c)": forest_counts, "batch driver (17b-c)": driver_counts}
 
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]

@@ -1,7 +1,7 @@
 """Carry configuration and state across from the JAX package.
 
-This path has no learned weights; what crosses over is configuration and
-state. The JAX package's containers arrive as dicts of numpy arrays (e.g.
+What crosses over is configuration, state and the wood/leaf classifier's
+weights. The JAX package's containers arrive as dicts of numpy arrays (e.g.
 ``{f: np.asarray(getattr(L, f)) for f in L._fields}``), so this module
 needs nothing of that package.
 """
@@ -112,3 +112,46 @@ def qsm_result_to_numpy(res) -> dict:
                n_steps=int(res.n_steps))
     return out
 
+
+
+def classifier_from_numpy(params: dict, feat_mean, feat_std, n_classes: int,
+                          device: str | torch.device = DEFAULT_DEVICE):
+    """The port's ``models.segmentation.Classifier`` from the JAX package's
+    (its ``{w0, b0, w1, b1, …}`` params as numpy, ``w_i`` [fan_in,
+    fan_out], and the feature mean and std): ``nn.Linear`` layers holding
+    ``w_iᵀ`` and ``b_i``, ReLU between them."""
+    from torch import nn
+
+    from pyqsm_tpu_torch.models.segmentation import Classifier
+
+    dev = resolve_device(device)
+    n_layers = len(params) // 2
+    layers: list[nn.Module] = []
+    for i in range(n_layers):
+        w = np.asarray(params[f"w{i}"], np.float32)
+        lin = nn.Linear(w.shape[0], w.shape[1], device=dev)
+        with torch.no_grad():
+            lin.weight.copy_(torch.as_tensor(w.T.copy(), device=dev))
+            lin.bias.copy_(torch.as_tensor(np.asarray(params[f"b{i}"], np.float32), device=dev))
+        layers.append(lin)
+        if i < n_layers - 1:
+            layers.append(nn.ReLU())
+    return Classifier(nn.Sequential(*layers),
+                      torch.as_tensor(np.asarray(feat_mean, np.float32), device=dev),
+                      torch.as_tensor(np.asarray(feat_std, np.float32), device=dev),
+                      int(n_classes))
+
+
+def classifier_to_numpy(clf) -> dict:
+    """The port's ``Classifier`` in the JAX package's form: ``params``
+    (``{w0, b0, …}``, ``w_i`` [fan_in, fan_out]), ``feat_mean``,
+    ``feat_std`` and ``n_classes``."""
+    from torch import nn
+
+    lins = [m for m in clf.mlp if isinstance(m, nn.Linear)]
+    params = {}
+    for i, lin in enumerate(lins):
+        params[f"w{i}"] = lin.weight.detach().cpu().numpy().T.copy()
+        params[f"b{i}"] = lin.bias.detach().cpu().numpy().copy()
+    return {"params": params, "feat_mean": clf.feat_mean.cpu().numpy(),
+            "feat_std": clf.feat_std.cpu().numpy(), "n_classes": clf.n_classes}

@@ -25,6 +25,14 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE, mesh=None) -> to
     return mesh.device
 
 
+def input_device(x, device=None) -> torch.device:
+    """The device asked for, else that of a tensor input, else the card
+    (``resolve_device``'s default)."""
+    if device is None:
+        return x.device if isinstance(x, torch.Tensor) else resolve_device()
+    return resolve_device(device)
+
+
 def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """numpy array or tensor -> tensor on ``device``."""
     if isinstance(x, torch.Tensor):

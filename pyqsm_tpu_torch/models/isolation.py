@@ -374,7 +374,8 @@ def build_trees(points, mask, cfg: IsolationConfig | None = None,
     rep_pts, rep_mask, rep_rows = rep_pts[mperm], rep_mask[mperm], rep_rows[mperm]
     seed_labels, low, high = id_trunk_bases(rep_pts, rep_mask, cfg, exclude_regions)
     search = low | high
-    _, nbr_idx = grid_self_radius_knn(rep_pts, radius=cfg.max_dist, k=neighbor_cap, mask=search)
+    _, nbr_idx = grid_self_radius_knn(rep_pts, radius=cfg.max_dist, k=neighbor_cap,
+                                      mask=search, sort=False, need_dists=False)
     # compact seed ids to [0, C): the ascending remap keeps the min-id claim
     _, _, seg_vals, _, seg_n = label_segments(seed_labels, u_cap=4096)
     n_seed = int(seg_n)

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pyqsm_tpu_torch.device import input_device
 from pyqsm_tpu_torch.ops.neighbors import _fma
 from pyqsm_tpu_torch.ops.raygrid import _host
 from pyqsm_tpu_torch.ops.raytrace import Hits, mt_components
@@ -100,8 +101,10 @@ class TwoLevelGrid(NamedTuple):
 
 def build_grid3d(vertices, triangles, target_tris_per_cell: float = 4.0,
                  max_cells_per_axis: int = 256, cell_cap: int | None = None,
-                 cap_percentile: float = 99.5, cell_rows_budget: int = 1 << 30) -> Grid3D:
-    """Host-built uniform grid (one argsort), returned on the mesh's device.
+                 cap_percentile: float = 99.5, cell_rows_budget: int = 1 << 30,
+                 device=None) -> Grid3D:
+    """Host-built uniform grid (one argsort), returned on ``device``, else on
+    the vertices' device when they are a tensor, else on the card.
 
     The cell balances ~``target_tris_per_cell`` triangles a cell against the
     DDA's step count, floored at the median triangle extent and at
@@ -109,7 +112,7 @@ def build_grid3d(vertices, triangles, target_tris_per_cell: float = 4.0,
     occupancy: triangles past their cell's cap leave the grid entirely for
     ``residual``. An explicit ``cell_cap`` raises ``ValueError`` when a cell
     holds more."""
-    dev = vertices.device if isinstance(vertices, torch.Tensor) else torch.device("cpu")
+    dev = input_device(vertices, device)
     verts = _host(vertices).astype(np.float64)
     tris = _host(triangles)
     live = tris[:, 0] >= 0

@@ -203,7 +203,7 @@ def radius_count(queries: torch.Tensor, points: torch.Tensor, radius: float,
 # ---------------------------------------------------------------------------
 
 _MAX_BUCKET = 64  # per-cell occupancy the grid query serves exactly
-_CELL_TILE = 4096  # occupied cells per query tile
+_CELL_TILE = 4096  # occupied cells per query tile, at most
 _NBR_OFFSETS = np.array(
     [[dx, dy, dz] for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
     dtype=np.int32,
@@ -251,13 +251,22 @@ def _first_k(ok: torch.Tensor, cand: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def grid_self_radius_knn(points: torch.Tensor, radius: float, k: int,
-                         mask: torch.Tensor | None = None):
+                         mask: torch.Tensor | None = None, *, max_bucket: int = _MAX_BUCKET,
+                         sort: bool = True, need_dists: bool = True):
     """Self radius-any-k over a full cloud: up to k in-radius neighbors of
-    each point (self included) in first-in-cell order, -1 padded. Exact
-    when per-cell occupancy ≤ 64 (voxel-downsample at
-    ``radius/2`` first: occupancy ≤ 8). Only the ``sort=False`` form of the
-    JAX package's query is ported; distances are 0 on hits, inf on padding
-    (its ``need_dists=False`` contract)."""
+    each point (self included) in first-in-cell order (the 27 neighbour
+    cells in offset order, rows in sorted-grid order within a cell), -1
+    padded. Exact when per-cell occupancy ≤ ``max_bucket`` (voxel-downsample
+    at ``radius/2`` first: occupancy ≤ 8); a denser cell's overflow rows
+    neither query nor serve, and a warning is logged. Distances are the
+    rounded roots of the same squared distances the JAX package selects
+    on, inf on padding; with ``need_dists=False`` they are 0 on hits.
+    Only the JAX package's ``sort=False`` form is ported: ``sort=True``
+    (the ``GridIndex`` route) raises."""
+    if sort:
+        raise NotImplementedError(
+            "grid_self_radius_knn(sort=True) needs the GridIndex route, which is "
+            "not ported yet; pass sort=False")
     n = points.shape[0]
     dev = points.device
     if mask is None:
@@ -270,14 +279,15 @@ def grid_self_radius_knn(points: torch.Tensor, radius: float, k: int,
     starts = torch.nonzero(first).flatten()  # [NC] ascending
     counts = torch.diff(torch.cat([starts, live.sum().reshape(1)]))
     occ = int(counts.max()) if n_cells else 0
-    cap = min(max(4, -4 * (-occ // 4)), _MAX_BUCKET)
+    cap = min(max(4, -4 * (-occ // 4)), max_bucket)
     if occ > cap:
         logging.getLogger("pyqsm_tpu_torch.calc").warning(
             "grid_self_radius_knn: cell occupancy %d exceeds bucket %d — "
             "overflow points dropped; pre-voxelize at radius/2 for exactness", occ, cap)
     out_i = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+    out_d = torch.full((n, k), float("inf"), device=dev)
     if n_cells == 0:
-        return torch.full((n, k), float("inf"), device=dev), out_i
+        return out_d, out_i
     # densified buckets: [NC + 1, cap] (last row = empty)
     within = torch.arange(n, device=dev) - starts[torch.clamp(seg, min=0)]
     row_ok = live & (within < cap)
@@ -299,8 +309,11 @@ def grid_self_radius_knn(points: torch.Tensor, radius: float, k: int,
     pos = torch.clamp(torch.searchsorted(cell_ids, nbr_cid), max=n_cells - 1)
     nbr_pos = torch.where((nbr_cid < INT32_MAX) & (cell_ids[pos] == nbr_cid), pos, n_cells)
     r2 = radius * radius
-    for s in range(0, n_cells, _CELL_TILE):
-        e = min(n_cells, s + _CELL_TILE)
+    # cells a tile: [ct, cap, 27·cap] distances (float64 inside _sq3) within
+    # _TILE_ELEMS elements
+    ct = max(1, min(_CELL_TILE, _TILE_ELEMS // (27 * cap * cap)))
+    for s in range(0, n_cells, ct):
+        e = min(n_cells, s + ct)
         npos = nbr_pos[s:e]  # [ct, 27]
         cand_p = bucket_pts[npos]  # [ct, 27, cap, 3]
         cand_i = bucket_idx[npos]  # [ct, 27, cap]
@@ -315,5 +328,11 @@ def grid_self_radius_knn(points: torch.Tensor, radius: float, k: int,
         rows = q_i.reshape(-1)
         good = rows >= 0
         out_i[rows[good].long()] = sel.reshape(-1, k)[good]
-    out_d = torch.where(out_i >= 0, 0.0, float("inf"))
+        if need_dists:  # the selected candidates' columns pick their d²
+            pos = _first_k(ok, torch.arange(27 * cap, device=dev), k)
+            d_sel = torch.gather(d2, -1, pos.clamp(min=0).long())
+            out_d[rows[good].long()] = torch.where(
+                pos >= 0, _sqrt(torch.clamp(d_sel, min=0.0)), float("inf")).reshape(-1, k)[good]
+    if not need_dists:
+        out_d = torch.where(out_i >= 0, 0.0, float("inf"))
     return out_d, out_i

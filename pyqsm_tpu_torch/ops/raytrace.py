@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from pyqsm_tpu_torch.device import resolve_device
+from pyqsm_tpu_torch.device import input_device
 from pyqsm_tpu_torch.ops.mt_raycast import (mt_components, mt_raycast, mt_raycast_plain,
                                             triangle_soa)
 
@@ -162,14 +162,6 @@ def hit_points_list(origins: torch.Tensor, dirs: torch.Tensor, hits: HitList) ->
     return torch.where((hits.tri >= 0)[..., None], p, torch.nan)
 
 
-def _ray_device(x, device) -> torch.device:
-    """A ray generator's device: the one asked for, else that of a tensor
-    input, else the card (``resolve_device``'s default)."""
-    if device is None:
-        return x.device if isinstance(x, torch.Tensor) else resolve_device()
-    return resolve_device(device)
-
-
 def _as_vec(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -183,7 +175,7 @@ def pinhole_rays(eye, center, up, fov_deg: float, width_px: int, height_px: int,
     """Pinhole camera ray bundle (Open3D ``create_rays_pinhole`` semantics);
     on ``device``, or on ``eye``'s device when that is a tensor, else on
     the card."""
-    device = _ray_device(eye, device)
+    device = input_device(eye, device)
     eye, center, up = (_as_vec(x, device) for x in (eye, center, up))
     fwd = _normalize(center - eye)
     right = _normalize(torch.linalg.cross(fwd, up))
@@ -206,7 +198,7 @@ def parallel_rays(lo, hi, direction, nx: int, ny: int, z_offset: float = 1.0,
     and set back so every ray starts outside the scene. Per-ray cell area
     = (2R/nx)·(2R/ny). On ``device``, or on ``lo``'s device when that is a
     tensor, else on the card."""
-    device = _ray_device(lo, device)
+    device = input_device(lo, device)
     lo, hi, direction = (_as_vec(x, device) for x in (lo, hi, direction))
     d = _normalize(direction)
     center = (lo + hi) / 2.0

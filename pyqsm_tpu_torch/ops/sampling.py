@@ -174,6 +174,13 @@ def compact_rows(points: torch.Tensor, mask: torch.Tensor, *extra: torch.Tensor,
     return (out_pts, valid, rows, *outs)
 
 
+def uniform_downsample(mask: torch.Tensor, every_k: int) -> torch.Tensor:
+    """Keep every k-th live point in index order (Open3D's
+    ``uniform_down_sample``). Returns the refined mask."""
+    live_rank = torch.cumsum(mask.to(torch.int32), 0) - 1
+    return mask & (live_rank % every_k == 0)
+
+
 def farthest_point_sampling(points: torch.Tensor, n_samples: int,
                             mask: torch.Tensor | None = None, start: int = 0) -> torch.Tensor:
     """FPS: ``idx [n_samples]`` of selected rows, first = lowest live row at

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 from pyqsm_tpu_torch.ops.mesh import TriMesh, empty_mesh
+from pyqsm_tpu_torch.ops.neighbors import _fma
+from pyqsm_tpu_torch.ops.sampling import _scalar
 
 # Kuhn decomposition: 6 tetrahedra around the 0-7 cube diagonal. Cube
 # corners are bit-indexed (x<<2 | y<<1 | z) offsets.
@@ -62,24 +64,41 @@ def density_grid(points: torch.Tensor, mask: torch.Tensor, lo, voxel: float, nx:
     blurred ``blur_iters`` times (each pass widens the support by a cell)."""
     dev = points.device
     lo = torch.as_tensor(lo, dtype=torch.float32, device=dev)
-    c = torch.floor((points - lo) / voxel).to(torch.int32)
+    c = torch.floor((points - lo) / _scalar(voxel, points)).to(torch.int32)
     dims = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
     ok = mask & ((c >= 0) & (c < dims)).all(dim=1)
     flat = torch.where(ok, (c[:, 0].long() * ny + c[:, 1]) * nz + c[:, 2], nx * ny * nz)
     field = torch.zeros(nx * ny * nz + 1, dtype=torch.float32, device=dev).index_add_(
         0, flat, torch.ones(flat.shape[0], device=dev))[:-1].reshape(nx, ny, nz)
+    return _blur(field, 3 * blur_iters)
 
-    def blur_axis(f, axis):
-        n = f.shape[axis]
-        zero = torch.zeros_like(f.narrow(axis, 0, 1))
-        lo_ = torch.cat([zero, f.narrow(axis, 0, n - 1)], dim=axis)  # f[i-1], 0 outside
-        hi_ = torch.cat([f.narrow(axis, 1, n - 1), zero], dim=axis)  # f[i+1], 0 outside
-        return (f + lo_ + hi_) / 3.0
 
-    for _ in range(blur_iters):
-        for ax in range(3):
-            field = blur_axis(field, ax)
-    return field
+def _shifted(f: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f[i-1], f[i+1]) along ``axis``, zero outside the volume."""
+    n = f.shape[axis]
+    zero = torch.zeros_like(f.narrow(axis, 0, 1))
+    return (torch.cat([zero, f.narrow(axis, 0, n - 1)], dim=axis),
+            torch.cat([f.narrow(axis, 1, n - 1), zero], dim=axis))
+
+
+def _blur(field: torch.Tensor, passes: int) -> torch.Tensor:
+    """``passes`` box-blur passes f ← (f + f[i-1] + f[i+1]) / 3 over the
+    axes in turn, rounded as XLA's CPU code rounds the fused chain: the
+    division is a product by f32(1/3); a pass whose neighbours were written
+    out by an earlier fusion adds them to the previous pass's unrounded
+    product (S·c + lo as one multiply-add, then + hi); the last pass, which
+    shifts its own inline input, rounds the centre product and adds the two
+    neighbour products to it as multiply-adds (lo, then hi)."""
+    if passes == 0:
+        return field
+    c = torch.tensor(1.0 / 3.0, dtype=torch.float32).item()
+    lo_, hi_ = _shifted(field, 0)
+    s = (field + lo_) + hi_  # pass 1's sum: integer counts, exact
+    for p in range(1, passes - 1):
+        lo_, hi_ = _shifted(s * c, p % 3)
+        s = _fma(s, c, lo_) + hi_
+    s_lo, s_hi = _shifted(s, (passes - 1) % 3)
+    return _fma(s_hi, c, _fma(s_lo, c, s * c)) * c
 
 
 def _cell_active(field: torch.Tensor, iso: float) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Console entry points (counterpart of ``pyqsm_tpu/pipeline/cli.py``): tree
-isolation, QSM generation, canopy metrics and the ray-casting study over
-any supported point-cloud file, with JSON/NPZ artifacts out — the same
-arguments and the same artifacts as the JAX package's commands.
+isolation, QSM generation, canopy metrics, the ray-casting study and the
+HTML viewer export over any supported point-cloud file, with JSON/NPZ/HTML
+artifacts out — the same arguments and the same artifacts as the JAX
+package's commands.
 
     python -m pyqsm_tpu_torch.pipeline.cli INPUT [-o DIR] ...   # tree isolation
 
@@ -178,6 +179,49 @@ def raycast_main(argv: list[str] | None = None,
     })
     print(f"mesh {n_tri} tris; camera SA3d {cam.surface_area_3d:.2f} m2; "
           f"{len(sweep)} sun angles, {dt:.1f}s -> {out}")
+    return 0
+
+
+def viz_main(argv: list[str] | None = None,
+             device: str | torch.device = DEFAULT_DEVICE) -> int:
+    """Export a standalone interactive HTML viewer of a cloud (optionally
+    coloured by an isolation label artifact) and/or a reconstructed
+    canopy mesh."""
+    parser = argparse.ArgumentParser(
+        "pyqsm-viz", description="Standalone WebGL viewer export")
+    _common(parser)
+    parser.add_argument("--labels", default=None,
+                        help="NPZ artifact with a 'labels' array "
+                             "(e.g. pyqsm-tree-isolation output)")
+    parser.add_argument("--mesh-voxel", type=float, default=None,
+                        help="also reconstruct + show a surface at this voxel size (m)")
+    parser.add_argument("--max-points", type=int, default=2_000_000)
+    args = parser.parse_args(argv)
+    dev = resolve_device(device)
+
+    from pyqsm_tpu_torch.utils.webviz import export_viewer
+
+    data, pts, mask = _load(args.input, args.voxel, dev)
+    mask_np = mask.cpu().numpy()
+    pts_np = pts.cpu().numpy()[mask_np]
+    labels = None
+    if args.labels:
+        lab = np.load(args.labels)["labels"]
+        labels = lab[mask_np] if len(lab) == len(mask_np) else lab
+    mesh_v = mesh_t = None
+    if args.mesh_voxel:
+        from pyqsm_tpu_torch.ops.voxelmesh import poisson_like_mesh
+
+        m = poisson_like_mesh(pts, mask, voxel=args.mesh_voxel)
+        mesh_v, mesh_t = m.vertices.cpu().numpy(), m.triangles.cpu().numpy()
+    out = Path(args.output_dir) / (Path(args.input).stem + "_viewer.html")
+    colors = getattr(data, "colors", None)
+    if labels is not None or (colors is not None and len(colors) != len(pts_np)):
+        colors = None
+    export_viewer(out, points=pts_np, labels=labels, colors=colors,
+                  mesh_vertices=mesh_v, mesh_triangles=mesh_t,
+                  title=Path(args.input).stem, max_points=args.max_points)
+    print(f"viewer -> {out} ({len(pts_np):,} points)")
     return 0
 
 

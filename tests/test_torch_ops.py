@@ -143,7 +143,8 @@ def test_grid_self_radius_any_k(k):
     pts, m = _cloud(10, n=3000, scale=1.5)
     _, ia = jn.grid_self_radius_knn(jnp.asarray(pts), 0.3, k, jnp.asarray(m), sort=False,
                                     need_dists=False)
-    _, ib = tn.grid_self_radius_knn(torch.as_tensor(pts), 0.3, k, torch.as_tensor(m))
+    _, ib = tn.grid_self_radius_knn(torch.as_tensor(pts), 0.3, k, torch.as_tensor(m),
+                                    sort=False, need_dists=False)
     _eq(ia, ib)
 
 

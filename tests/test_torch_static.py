@@ -39,12 +39,23 @@ REQUIRED = ["ops/band_matvec.py", "ops/cuda_build.py", "ops/mt_raycast.py", "ops
             "parallel/mesh.py", "parallel/growth.py", "ops/area.py", "ops/color.py",
             "ops/cluster.py", "models/canopy.py", "ops/grid3d.py", "parallel/raycast.py",
             "ops/normals.py", "ops/ransac.py", "models/qsm.py", "io/readers.py", "io/artifacts.py",
-            "pipeline/cli.py"]
+            "pipeline/cli.py", "ops/features.py", "models/segmentation.py",
+            "models/graph_features.py", "models/joining.py", "models/reconstruction.py",
+            "io/native.py", "pipeline/__init__.py", "pipeline/driver.py", "utils/__init__.py",
+            "utils/logging.py", "utils/timing.py", "utils/webviz.py"]
 
 
 def test_import_scan_covers_every_port_module():
     scanned = {str(p.relative_to(ROOT / "pyqsm_tpu_torch")) for p in PORT_FILES[:-1]}
     assert not set(REQUIRED) - scanned
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_loads_nothing_of_native_dir(path):
+    """The port builds its own ingestion library from ``csrc/pointio.cpp``;
+    no file of it reaches the JAX package's ``native/`` directory."""
+    text = path.read_text()
+    assert "libpointio.so" not in text and '"native"' not in text and "native/" not in text
 
 
 def test_every_kernel_source_is_registered_for_the_build():
@@ -60,7 +71,8 @@ def test_every_kernel_source_is_registered_for_the_build():
 def _entry_points():
     from pyqsm_tpu_torch import convert, state
     from pyqsm_tpu_torch.io import artifacts
-    from pyqsm_tpu_torch.models import canopy, isolation, plot_pipeline, qsm, raycast, skeleton
+    from pyqsm_tpu_torch.models import (canopy, isolation, plot_pipeline, qsm, raycast,
+                                        segmentation, skeleton)
     from pyqsm_tpu_torch.parallel import mesh
     from pyqsm_tpu_torch.pipeline import cli
 
@@ -73,10 +85,11 @@ def _entry_points():
             qsm.sphere_following_qsm, qsm.sphere_qsm_forest, qsm.generate_qsm,
             convert.front_from_numpy, artifacts.load_artifact, artifacts.load_cylinders,
             cli.tree_isolation_main, cli.qsm_generation_main, cli.canopy_metrics_main,
-            cli.raycast_main]
+            cli.raycast_main, cli.viz_main, segmentation.train_classifier,
+            segmentation.classify_wood_leaf, convert.classifier_from_numpy]
 
 
-@pytest.mark.parametrize("fn", range(28))
+@pytest.mark.parametrize("fn", range(32))
 def test_entry_points_default_to_cuda(fn):
     f = _entry_points()[fn]
     assert inspect.signature(f).parameters["device"].default == "cuda", f.__qualname__
@@ -122,6 +135,48 @@ def test_ray_generators_ask_for_the_card():
         tr.parallel_rays(*box)
     assert tr.pinhole_rays(*cam, device="cpu")[1].device.type == "cpu"
     assert tr.parallel_rays(torch.zeros(3), *box[1:])[0].device.type == "cpu"
+
+
+def test_build_grid3d_asks_for_the_card():
+    """``build_grid3d`` (and so ``build_grid3d_two_level``) given numpy
+    input builds its grid on the card (here: raises without one); a tensor
+    input or ``device`` decides otherwise."""
+    import numpy as np
+
+    from pyqsm_tpu_torch.ops import grid3d as g3
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    v = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
+    t = np.array([[0, 1, 2], [0, 1, 3]], np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        g3.build_grid3d(v, t)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        g3.build_grid3d_two_level(v.tolist(), t)
+    assert g3.build_grid3d(torch.as_tensor(v), t).lo.device.type == "cpu"
+    assert g3.build_grid3d(v, t, device="cpu").lo.device.type == "cpu"
+
+
+def test_segmentation_and_joining_without_card_raise():
+    """The new entry points given numpy input (or no device) ask for the
+    card: without one they raise."""
+    import numpy as np
+
+    from pyqsm_tpu_torch.models import joining, segmentation
+    from pyqsm_tpu_torch.pipeline import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    pts = np.zeros((8, 3), np.float32)
+    ones = np.ones(8, bool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        segmentation.classify_wood_leaf(pts, ones, np.arange(4), np.zeros(4, np.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        joining.label_adjacency(pts, np.zeros(8, np.int32), ones)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        joining.merge_labeled_scans([pts], [np.zeros(8, np.int32)], [ones])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.viz_main(["missing.npz"])
 
 
 def test_qsm_entry_points_without_card_raise():
