@@ -174,7 +174,38 @@ Phases, each printing lines with the elapsed seconds:
    (gate equal, floats within the parity test's tolerance), the classifier
    trained on the same features (loss within 1e-4, predictions equal but
    on near-ties, counted), the graph masks, ``label_adjacency`` and
-   ``recover_details`` equal.
+   ``recover_details`` equal;
+18. the last slice's modules on phase 5's plot, each drive with the
+   counters set to 0 just before and read just after: (a) the plot
+   voxel-downsampled at 0.05 m, ``build_grid`` at 0.1 m (occupancy, cells)
+   and ``grid_self_radius_knn(sort=True, k=16)``, first and steady — every
+   row ascending, every id within the radius in float64 (up to the
+   expanded form's rounding band), 4096 sampled rows equal to ``knn``'s
+   outside ties within that band — then 100 000 raw rows through ``grid_radius_knn``
+   and ``grid_radius_any_k`` (any-k ids inside the radius ball; on rows
+   with fewer than k neighbours the same set), and the three queries on
+   phase 4's plot card = CPU bit for bit; (b) ``clean_cloud`` on the
+   largest tree's raw rows, rows kept, card = CPU on phase 4's plot; (c)
+   on phase 7's canopy ``canopy_surface_mesh(max_edge=0.5)`` and its nadir
+   ``sun_exposure``, ``alpha_complex_mesh(1.0)`` of the canopy laddered to
+   ≤ 50 000 points, ``surface_clusters``, ``fill_holes`` and
+   ``map_density(0.2, 10th percentile)`` against the canopy; card = CPU on
+   a ≤ 5000-point ladder (counts, densities, colours equal); (d)
+   ``build_octree`` (depth 6, stop 250) on the plot, ``get_center`` and
+   ``get_radius`` on each tree card = CPU within 1e-6 of max(|CPU|, 1 m),
+   ``generate_grid`` of the footprint; (e) ``multi_tree_pipeline_step``
+   (k = 8, 64 hypotheses) on the 8 trees laddered to ≤ 16 384 rows and
+   padded to it, over a (2, 2) mesh of 4 ranks (NCCL with a card each on
+   four cards, gloo on ``cuda:0`` otherwise), first and warm call, peak
+   memory a rank: fits finite and positive and the same on a ``points``
+   row, each live row's label at most its id; against one rank's (1, 1)
+   mesh the kNN distances slot for slot and the mean neighbour distances
+   bit for bit, the labels on every row whose neighbour ids are equal
+   (the ring keeps the earlier hop's id on an exact d² tie, as the JAX
+   package's does; the tie rows and the contraction's difference are
+   printed); the JAX test's two 512-row branches on the card's ranks
+   against 4 gloo ranks on the CPU: labels and fits equal, contraction
+   within 1e-4 m.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -2853,6 +2884,457 @@ def segment_card_cpu(mods, small, devices=("cuda", "cpu")) -> dict:
     return out
 
 
+def timed(fn):
+    """(result, seconds, peak GiB) of one call that ends in a synchronise
+    (the CPU reports no peak)."""
+    import torch
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() / 2 ** 30
+                                           if cuda else 0.0)
+
+
+def f64_dist(a, b, ids):
+    """float64 distances of [Q, 3] rows to their [Q, k] candidate rows of
+    ``b`` (inf where the id is -1), and the float32 rounding band of the
+    expanded form ``q² + c² − 2·q·c`` there: 4·2⁻²⁴·(|q|² + |c|²) in d²."""
+    import torch
+
+    a64, b64 = a.double(), b.double()
+    c = b64[ids.clamp(min=0).long()]
+    d2 = ((a64[:, None, :] - c) ** 2).sum(-1)
+    band = 4 * 2.0 ** -24 * ((a64 ** 2).sum(-1)[:, None] + (c ** 2).sum(-1))
+    hit = ids >= 0
+    return torch.where(hit, d2, float("inf")), torch.where(hit, band, 0.0)
+
+
+def tie_explained(ids_a, ids_b, d2_of, r2, band) -> bool:
+    """Two id lists of one row agree outside exact ties: the ids they do
+    not share lie within the rounding band of the radius, or of the
+    farthest distance both lists reach (where the k-th place is decided)."""
+    sa, sb = set(ids_a), set(ids_b)
+    if sa == sb:
+        return True
+    kth = max(d2_of[i] for i in sa | sb)
+    return all(abs(d2_of[i] - r2) <= band or abs(d2_of[i] - kth) <= band for i in sa ^ sb)
+
+
+def grid_index_path(tn, knn, sampling, pts, small) -> dict:
+    """Phase 18a: the grid index at plot scale (phase 5's plot
+    voxel-downsampled at 0.05 m, the sorted self query at 0.1 m, k = 16),
+    100 000 raw rows queried against it, and the card against the CPU on
+    phase 4's plot."""
+    import numpy as np
+    import torch
+
+    r, k = 0.1, 16
+    ones = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    vp, vm, _ = sampling.voxel_downsample(pts, r / 2, ones)
+    q = vp[vm].contiguous()
+    n = q.shape[0]
+    index, build_s, _ = timed(lambda: tn.build_grid(q, r))
+    sc = index.sorted_cell
+    occ = int(tn.max_cell_occupancy(index))
+    n_cells = int(((sc[1:] != sc[:-1]).sum() + 1))
+    out = dict(points=n, cells=n_cells, occupancy=occ, build_s=build_s)
+    for call in ("first", "steady"):
+        (d, i), out[f"{call}_s"], out["peak_gib"] = timed(
+            lambda: tn.grid_self_radius_knn(q, r, k))
+    d2, band = f64_dist(q, q, i)
+    fin = torch.isfinite(d)
+    ascending = bool((torch.where(fin, d, 1e9).diff(dim=1) >= 0).all())
+    within = bool(((d2 <= r * r + band) | ~fin).all())
+    # a row's own id is among its k (its d² is 0 up to the rounding band)
+    self_in = bool((i == torch.arange(n, device=q.device)[:, None]).any(1).all())
+    # 4096 sampled rows against brute kNN within the radius
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(18))[:4096].to(q.device)
+    bd, bi = knn(q[rows], q, k)
+    bi = torch.where(bd <= r, bi, -1)
+    same_rows = int((bi == i[rows]).all(1).sum())
+    allc = torch.cat([i[rows], bi], 1)
+    d2c, bandc = f64_dist(q[rows], q, allc)
+    bad = 0
+    for row in range(len(rows)):
+        ga = [int(x) for x in i[rows[row]].tolist() if x >= 0]
+        gb = [int(x) for x in bi[row].tolist() if x >= 0]
+        d2_of = {int(x): float(v) for x, v in zip(allc[row].tolist(), d2c[row].tolist()) if x >= 0}
+        if not tie_explained(ga, gb, d2_of, r * r, float(bandc[row].max())):
+            bad += 1
+    out.update(ascending=ascending, within=within, self_in_row=self_in,
+               knn_rows_equal=same_rows, knn_rows_unexplained=bad)
+    log("grid", f"plot voxelized at {r / 2} m: {n} points, {n_cells} cells at {r} m, largest "
+        f"occupancy {occ}; build_grid {build_s:.3f}s; grid_self_radius_knn(sort=True, k={k}) "
+        f"first {out['first_s']:.3f}s, steady {out['steady_s']:.3f}s, max_memory_allocated "
+        f"{out['peak_gib']:.3f} GiB; rows ascending {ascending}, every id within the radius "
+        f"in float64 (rounding band 4·2⁻²⁴·(|q|²+|c|²)) {within}, own id in every row {self_in}; "
+        f"4096 sampled rows: ids equal to knn's within the radius in {same_rows}, the rest "
+        f"differing only on ties within the rounding band but {bad}")
+    if not (ascending and within and self_in) or bad:
+        fail("the sorted grid self query disagrees with its checks")
+    # 100 000 raw plot rows against the index
+    qr = pts[torch.randperm(pts.shape[0], generator=torch.Generator().manual_seed(19))[
+        :100_000].to(pts.device)].contiguous()
+    cap = tn.recommend_cell_cap(index)
+    (sd, si), out["radius_knn_s"], _ = timed(lambda: tn.grid_radius_knn(index, qr, r, k,
+                                                                        cell_cap=cap))
+    (ad, ai), out["any_k_s"], _ = timed(lambda: tn.grid_radius_any_k(index, qr, r, k,
+                                                                     cell_cap=cap))
+    ad2, aband = f64_dist(qr, q, ai)
+    in_ball = bool(((ad2 <= r * r + aband) | (ai < 0)).all())
+    unsat = (si < 0).any(1)
+    d2s, bands = f64_dist(qr, q, torch.cat([si, ai], 1))
+    sets_bad = 0
+    for row in torch.nonzero(unsat).flatten()[:20_000].tolist():
+        ga = [int(x) for x in si[row].tolist() if x >= 0]
+        gb = [int(x) for x in ai[row].tolist() if x >= 0]
+        ids = torch.cat([si[row], ai[row]]).tolist()
+        d2_of = {int(x): float(v) for x, v in zip(ids, d2s[row].tolist()) if x >= 0}
+        if not tie_explained(ga, gb, d2_of, r * r, float(bands[row].max())):
+            sets_bad += 1
+    hits = int((si >= 0).sum())
+    out.update(cap=cap, any_k_in_ball=in_ball, unsaturated_rows=int(unsat.sum()),
+               unsaturated_sets_bad=sets_bad, query_hits=hits)
+    log("grid", f"100 000 raw rows against the index (cell_cap {cap}): grid_radius_knn "
+        f"{out['radius_knn_s']:.3f}s ({hits} hits), grid_radius_any_k {out['any_k_s']:.3f}s; "
+        f"every any-k id inside the radius ball {in_ball}; on the {int(unsat.sum())} rows with "
+        f"fewer than {k} neighbours (first 20 000 checked) the any-k set equals the sorted "
+        f"set but {sets_bad}")
+    if not in_ball or sets_bad or hits == 0:
+        fail("grid_radius_any_k disagrees with grid_radius_knn")
+    # the card against the CPU on phase 4's plot: ids and distances bit for bit
+    same = {}
+    for dev in ("cuda", "cpu"):
+        sp = torch.as_tensor(small, device=dev)
+        sv, sm, _ = sampling.voxel_downsample(sp, r / 2, torch.ones(len(small), dtype=torch.bool,
+                                                                    device=dev))
+        sq = sv[sm].contiguous()
+        idx = tn.build_grid(sq, r)
+        same[dev] = [x.cpu() for x in (*tn.grid_self_radius_knn(sq, r, k),
+                                       *tn.grid_radius_knn(idx, sp, r, k),
+                                       *tn.grid_radius_any_k(idx, sp, r, k))]
+    eq = [bool(np.array_equal(a.numpy().view(np.int32), b.numpy().view(np.int32)))
+          for a, b in zip(same["cuda"], same["cpu"])]
+    out["card_cpu"] = eq
+    log("grid", f"phase 4's plot, card = CPU bit for bit (self d, ids; radius_knn d, ids; "
+        f"any_k d, ids): {eq}")
+    if not all(eq):
+        fail("the grid queries differ between the card and the CPU")
+    return out
+
+
+def clean_cloud_path(outliers, pts, labels, tree_id: int, small) -> dict:
+    """Phase 18b: ``clean_cloud`` (defaults) on the largest tree's raw rows,
+    then the card against the CPU on phase 4's plot."""
+    import torch
+
+    rows = pts[labels == tree_id].contiguous()
+    ones = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    (p, m, tr), s, peak = timed(lambda: outliers.clean_cloud(rows, ones))
+    kept, reps = int(m.sum()), int((tr >= 0).sum())
+    out = dict(rows=rows.shape[0], kept=kept, s=s, peak_gib=peak)
+    cc = {dev: [x.cpu() for x in outliers.clean_cloud(torch.as_tensor(small, device=dev),
+                                                      torch.ones(len(small), dtype=torch.bool,
+                                                                 device=dev))]
+          for dev in ("cuda", "cpu")}
+    out["card_cpu"] = [bool(torch.equal(a, b)) for a, b in zip(cc["cuda"], cc["cpu"])]
+    log("clean", f"clean_cloud on tree {tree_id}'s {rows.shape[0]} raw rows: {kept} rows kept "
+        f"({reps} rows traced to a voxel) in {s:.3f}s, max_memory_allocated {peak:.3f} GiB; "
+        f"phase 4's plot card = CPU (points, mask, trace): {out['card_cpu']} "
+        f"({int(cc['cpu'][1].sum())} of {len(small)} kept)")
+    if not 0 < kept < rows.shape[0] or not torch.isfinite(p[m]).all():
+        fail("clean_cloud kept no rows, or every row, or non-finite points")
+    if not all(out["card_cpu"]):
+        fail("clean_cloud differs between the card and the CPU")
+    return out
+
+
+def ladder_to(sampling, pts, cap: int):
+    """Live rows of ``pts`` voxel-laddered from 0.05 m, 1.3× a rung, to at
+    most ``cap`` rows."""
+    import torch
+
+    ones = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    voxel = 0.05
+    p2, m2, _ = sampling.voxel_downsample(pts, voxel, ones)
+    while int(m2.sum()) > cap:
+        voxel *= 1.3
+        p2, m2, _ = sampling.voxel_downsample(pts, voxel, ones)
+    return p2[m2].contiguous(), voxel
+
+
+def mesh_counts(tm, mesh, cloud, device) -> dict:
+    """The meshes' part of phase 18c on one device: alpha complex, clusters,
+    holes, density; their triangle counts, densities and colours."""
+    import torch
+
+    labels, filt = tm.surface_clusters(mesh.to(device), min_triangles=20)
+    filled = tm.fill_holes(filt)
+    dens, cols, trimmed = tm.map_density(filled, torch.as_tensor(cloud).to(device), radius=0.2,
+                                         density_threshold_pctile=10)
+    return dict(clusters=int(labels.max()) + 1, kept=filt.n_triangles(),
+                filled=filled.n_triangles(), trimmed=trimmed.n_triangles(),
+                dens=dens.cpu(), cols=cols.cpu(), tris=trimmed.triangles.cpu())
+
+
+def meshes_path(tm, tmr, sampling, pts) -> dict:
+    """Phase 18c: the scipy meshes on phase 7's canopy (z > 6 m): the canopy
+    surface and its nadir exposure, the alpha complex of the canopy
+    laddered to ≤ 50 000 points, its clusters, holes and density; then the
+    card against the CPU on a ladder of ≤ 5000 points."""
+    import torch
+
+    canopy = pts[pts[:, 2] > 6.0].contiguous()
+    surf, surf_s, _ = timed(lambda: tm.canopy_surface_mesh(canopy, max_edge=0.5,
+                                                              device="cuda"))
+    sun, sun_s, sun_peak = timed(lambda: tmr.sun_exposure(surf, elevation_deg=90.0,
+                                                                  device="cuda"))
+    lad, voxel = ladder_to(sampling, canopy, 50_000)
+    alpha, alpha_s, _ = timed(lambda: tm.alpha_complex_mesh(lad, 1.0, device="cuda"))
+    parts, parts_s, peak = timed(lambda: mesh_counts(tm, alpha, canopy, "cuda"))
+    out = dict(canopy=canopy.shape[0], surface=surf.n_triangles(), surface_s=surf_s,
+               sun_area_2d=float(sun.surface_area_2d), sun_s=sun_s, sun_peak_gib=sun_peak,
+               ladder=lad.shape[0], voxel=voxel, alpha=alpha.n_triangles(), alpha_s=alpha_s,
+               parts_s=parts_s, peak_gib=peak,
+               **{k: parts[k] for k in ("clusters", "kept", "filled", "trimmed")})
+    log("mesh", f"canopy {canopy.shape[0]} points: canopy_surface_mesh(max_edge=0.5) "
+        f"{out['surface']} triangles in {surf_s:.3f}s; sun_exposure (nadir, grid) 2D area "
+        f"{out['sun_area_2d']:.3f} m² in {sun_s:.3f}s ({sun_peak:.3f} GiB); laddered at "
+        f"{voxel:.4f} m to {lad.shape[0]} points: alpha_complex_mesh(1.0) {out['alpha']} "
+        f"triangles in {alpha_s:.3f}s; surface_clusters {out['clusters']} components, "
+        f"{out['kept']} triangles in those of ≥ 20; fill_holes {out['filled']}; "
+        f"map_density(0.2, 10th percentile) keeps {out['trimmed']}; the three in "
+        f"{parts_s:.3f}s, max_memory_allocated {peak:.3f} GiB")
+    if min(out["surface"], out["alpha"], out["trimmed"]) <= 0 or not out["sun_area_2d"] > 0:
+        fail("a canopy mesh is empty, or its exposure area is not positive")
+    small, _ = ladder_to(sampling, canopy, 5000)
+    cloud = lad.cpu()
+    runs = {dev: mesh_counts(tm, tm.alpha_complex_mesh(small.cpu(), 1.0, device=dev), cloud,
+                             dev) for dev in ("cuda", "cpu")}
+    a, b = runs["cuda"], runs["cpu"]
+    eq = {k: (a[k] == b[k]) if isinstance(a[k], int) else bool(torch.equal(a[k], b[k]))
+          for k in a}
+    out["card_cpu"] = eq
+    log("mesh", f"{small.shape[0]}-point ladder against the {cloud.shape[0]}-point one, card = "
+        f"CPU: {eq} (differing densities: {int((a['dens'] != b['dens']).sum())})")
+    if not all(eq.values()):
+        fail("the meshes' counts, densities or colours differ between the card and the CPU")
+    return out
+
+
+def octree_geometry_path(octree, geometry, pts, labels, trees) -> dict:
+    """Phase 18d: ``build_octree`` on the plot (depth 6, stop 250),
+    ``get_center`` and ``get_radius`` on each tree on the card and on the
+    CPU, ``generate_grid`` of the footprint."""
+    import torch
+
+    root, s, _ = timed(lambda: octree.build_octree(pts, max_depth=6, stop_below=250))
+    lv = octree.leaves(root)
+    rows = sum(len(leaf.indices) for leaf in lv)
+    out = dict(leaves=len(lv), rows=rows, s=s, deepest=max(leaf.depth for leaf in lv))
+    worst = 0.0
+    on = {"cuda": (pts, labels), "cpu": (pts.cpu(), labels.cpu())}
+    for t in trees:
+        vals = {}
+        for dev, (p, lab) in on.items():
+            mm = lab == t.tree_id
+            vals[dev] = torch.cat([geometry.get_center(p, mm, meth) for meth in
+                                   ("centroid", "top", "bottom")]
+                                  + [geometry.get_radius(p, mm)[None]]).cpu().double()
+        rel = ((vals["cuda"] - vals["cpu"]).abs() / vals["cpu"].abs().clamp(min=1.0)).max()
+        worst = max(worst, float(rel))
+    lo = pts.amin(0).tolist()
+    hi = pts.amax(0).tolist()
+    cells = geometry.generate_grid(tuple(lo[:2]), tuple(hi[:2]))
+    out.update(center_radius_max_rel=worst, grid_cells=len(cells))
+    log("octree", f"build_octree on {pts.shape[0]} points (depth 6, stop 250): {len(lv)} leaves "
+        f"holding {rows} rows, deepest {out['deepest']}, {s:.3f}s; get_center (centroid, top, "
+        f"bottom) and get_radius on {len(trees)} trees, card against CPU: largest difference "
+        f"{worst:.3e} of max(|CPU|, 1 m); generate_grid of the footprint {len(cells)} cells, "
+        f"first {[[round(v, 3) for v in c] for c in cells[0]]}")
+    if rows != pts.shape[0] or len(cells) != 6:
+        fail("the octree's leaves do not partition the plot, or the footprint grid is wrong")
+    if worst > 1e-6:
+        fail("get_center/get_radius differ between the card and the CPU by more than 1e-6")
+    return out
+
+
+STEP_N = 16_384  # rows a tree of phase 18e (__graft_entry__.entry()'s tree)
+STEP_KW = dict(k=8, n_hyp=64)
+
+
+def step_rank(trees, mask, seed: int, n_trees_axis: int, small=None, mesh=None) -> dict:
+    """A rank of phase 18e: ``multi_tree_pipeline_step`` on its block of
+    the [T, N, 3] trees over a (``n_trees_axis``, ranks / it) mesh, a first
+    and a warm call; then, given ``small``, the JAX test's two trees."""
+    import torch
+
+    from pyqsm_tpu_torch.parallel import mesh as pm
+    from pyqsm_tpu_torch.parallel import pipeline_step as ps
+    from pyqsm_tpu_torch.parallel.collective_ops import ring_knn
+
+    tp = pm.tree_points_mesh(n_trees_axis, device=mesh.device)
+    step = ps.multi_tree_pipeline_step(tp, **STEP_KW)
+    blk = pm.shard_tree_batch(torch.as_tensor(trees), tp)
+    mblk = pm.shard_tree_batch(torch.as_tensor(mask), tp)
+    draws = ps.step_draws(seed, tp, mblk, STEP_KW["n_hyp"])
+    out = dict(rank=mesh.rank, coords=tp.coords(), device=str(mesh.device), backend=mesh.backend)
+    cuda = mesh.device.type == "cuda"
+    for call in ("first", "warm"):
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        t0 = time.perf_counter()
+        res = step(blk, mblk, draws)
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+        out[f"{call}_s"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30 if cuda else 0.0
+    out["res"] = res
+    # the step's neighbour lists (its first stage again, outside the timed calls)
+    knn = [ring_knn(torch.where(m[:, None], p, 1e6), torch.where(m[:, None], p, 1e6), m,
+                    STEP_KW["k"] + 1, tp, "points") for p, m in zip(blk, mblk)]
+    out["res"].update(knn_d=torch.stack([d[:, 1:] for d, _ in knn]),
+                      knn_i=torch.stack([i[:, 1:] for _, i in knn]))
+    if small is not None:
+        sblk = pm.shard_tree_batch(torch.as_tensor(small[0]), tp)
+        smb = pm.shard_tree_batch(torch.as_tensor(small[1]), tp)
+        out["small"] = step(sblk, smb, ps.step_draws(seed, tp, smb, STEP_KW["n_hyp"]))
+    return out
+
+
+def assemble(ranks, key, t_axis: int):
+    """The ranks' [T_local, P_local, ...] blocks of ``key`` as [T, N, ...]."""
+    import torch
+
+    p_axis = len(ranks) // t_axis
+    return torch.cat([torch.cat([ranks[t * p_axis + j]["res"][key] for j in range(p_axis)], 1)
+                      for t in range(t_axis)])
+
+
+def step_trees(sampling, pts, labels, trees):
+    """The 8 trees voxel-laddered to at most 4·``STEP_N`` rows and cut to
+    ``STEP_N`` of them (a seeded choice, in row order): numpy [T, N, 3] and
+    an all-true mask. Cut, not padded: a padded row sits at 10⁶ m, every
+    candidate ties for its neighbours, the ring and a single block break
+    those ties in other orders, and the padded rows' edges enter the
+    Laplacian of the live ones (as in the JAX package), so one rank and
+    four would contract differently."""
+    import numpy as np
+
+    batch = np.zeros((len(trees), STEP_N, 3), np.float32)
+    for i, t in enumerate(trees):
+        rows, _ = walk_tree(sampling, pts, labels, t.tree_id, 4 * STEP_N)
+        if len(rows) < STEP_N:
+            fail(f"tree {t.tree_id} laddered to {len(rows)} rows, fewer than {STEP_N}")
+        batch[i] = rows[np.sort(np.random.default_rng(i).choice(len(rows), STEP_N,
+                                                                replace=False))]
+    return batch, np.ones((len(trees), STEP_N), bool)
+
+
+def small_step_trees():
+    """The JAX test's case (tests/test_parallel.py:25): two noisy 0.3 m
+    branches of 512 rows, 3 m long."""
+    import numpy as np
+
+    out = []
+    for seed in range(2):
+        rng = np.random.default_rng(seed)
+        t, th = rng.uniform(0, 3.0, 512), rng.uniform(0, 2 * np.pi, 512)
+        r = 0.3 + rng.normal(0, 0.005, 512)
+        out.append(np.stack([r * np.cos(th), r * np.sin(th), t], 1))
+    return np.stack(out).astype(np.float32), np.ones((2, 512), bool)
+
+
+def sharded_step_path(launch, sampling, pts, labels, trees) -> dict:
+    """Phase 18e: the sharded multi-tree step at full width over 4 ranks on
+    a (2, 2) mesh (NCCL with a card each on four cards, gloo on ``cuda:0``
+    otherwise), against one rank on a (1, 1) mesh; the JAX test's case on
+    the card's ranks against four gloo ranks on the CPU."""
+    import torch
+
+    batch, mask = step_trees(sampling, pts, labels, trees)
+    small = small_step_trees()
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= SHARDED_RANKS else "gloo"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(step_rank, SHARDED_RANKS, backend, args=(batch, mask, 18, 2, small),
+                   device="cuda" if backend == "nccl" else "cuda:0", timeout=BUDGET_S)
+    launch_s = time.perf_counter() - t0
+    one = launch(step_rank, 1, "gloo", args=(batch, mask, 18, 1), device="cuda:0",
+                 timeout=BUDGET_S)
+    cpu = launch(step_rank, SHARDED_RANKS, "gloo", args=(small[0], small[1], 18, 2),
+                 device="cpu", timeout=BUDGET_S)
+    out = dict(backend=backend, rows=[int(m.sum()) for m in mask], launch_s=launch_s,
+               rank_warm_s=[r["warm_s"] for r in ranks], rank_first_s=[r["first_s"] for r in ranks],
+               rank_peak_gib=[r["peak_gib"] for r in ranks], one_warm_s=one[0]["warm_s"],
+               one_peak_gib=one[0]["peak_gib"])
+    lab = assemble(ranks, "labels", 2)
+    gid = torch.arange(STEP_N, dtype=lab.dtype)[None].expand_as(lab)
+    live = torch.as_tensor(mask)
+    radius = torch.cat([ranks[2 * t]["res"]["fit_radius"] for t in range(2)])
+    # against one rank: the ring merges a hop's candidates after the
+    # earlier hops', so an exact tie in d² (the expanded form's float32 d²
+    # at plot coordinates is a multiple of ~1e-4 m²) can keep another id
+    # than one block's lower index does: the distances must be equal slot
+    # for slot, and the labels on every row whose neighbour ids are equal
+    one_res = one[0]["res"]
+    tie = (assemble(ranks, "knn_i", 2) != one_res["knn_i"]).any(-1)
+    lab_diff = lab != one_res["labels"]
+    checks = dict(
+        fit_radius=bool((torch.isfinite(radius) & (radius > 0)).all()),
+        labels_le_id=bool((lab <= gid)[live].all()),
+        contracted_finite=bool(torch.isfinite(assemble(ranks, "contracted", 2)).all()),
+        fits_replicated=all(torch.equal(ranks[2 * t]["res"][k], ranks[2 * t + 1]["res"][k])
+                            for t in range(2) for k in ("fit_radius", "fit_center")),
+        knn_dist_one_rank=bool(torch.equal(assemble(ranks, "knn_d", 2), one_res["knn_d"])),
+        labels_one_rank_outside_ties=bool(not (lab_diff & ~tie).any()),
+        nbr_dist_one_rank=bool(torch.equal(assemble(ranks, "nbr_dist_mean", 2),
+                                           one_res["nbr_dist_mean"])))
+    con_diff = float((assemble(ranks, "contracted", 2) - one_res["contracted"])[live]
+                     .abs().max())
+
+    def small_of(rs, key):
+        return torch.cat([torch.cat([rs[2 * t + j]["small"][key] if "small" in rs[0] else
+                                     rs[2 * t + j]["res"][key] for j in range(2)], 1)
+                          for t in range(2)])
+
+    s_con = float((small_of(ranks, "contracted") - small_of(cpu, "contracted")).abs().max())
+    checks.update(small_labels=bool(torch.equal(small_of(ranks, "labels"),
+                                                small_of(cpu, "labels"))),
+                  small_contracted=s_con <= 1e-4,
+                  small_fit=all(torch.equal(ranks[2 * t]["small"]["fit_radius"],
+                                            cpu[2 * t]["res"]["fit_radius"]) for t in range(2)))
+    out.update(checks=checks, contracted_one_rank_max_diff=con_diff,
+               tie_rows=int(tie.sum()), label_rows_differing=int(lab_diff.sum()),
+               small_contracted_max_diff=s_con, fit_radius=radius.tolist(),
+               labels=[int(torch.unique(lab[t][live[t]]).numel()) for t in range(lab.shape[0])])
+    for r in ranks:
+        log("step", f"rank {r['rank']} {r['coords']} ({r['device']}, {r['backend']}): 4 trees x "
+            f"{STEP_N // 2} rows, first {r['first_s']:.3f}s, warm {r['warm_s']:.3f}s, "
+            f"max_memory_allocated {r['peak_gib']:.3f} GiB")
+    log("step", f"8 trees ({out['rows']} live rows of {STEP_N}), k=8, 64 hypotheses, (2, 2) mesh "
+        f"over {SHARDED_RANKS} ranks ({backend}; launch {launch_s:.2f}s); one rank on a (1, 1) "
+        f"mesh warm {out['one_warm_s']:.3f}s, {out['one_peak_gib']:.3f} GiB; fit radii "
+        f"{[round(x, 4) for x in out['fit_radius']]}; labels a tree after one round "
+        f"{out['labels']}; against one rank: {out['tie_rows']} rows keep another id on a d² tie, "
+        f"{out['label_rows_differing']} labels differ (all on such rows: "
+        f"{checks['labels_one_rank_outside_ties']}), contracted max diff {con_diff:.3e} m (the "
+        f"graphs differ on those ties); the JAX test's "
+        f"case card vs CPU ranks: contracted max diff {s_con:.3e} m; checks {checks}")
+    if not all(checks.values()):
+        fail(f"the sharded multi-tree step failed a check: "
+             f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--points", type=int, default=2_000_000,
@@ -2901,6 +3383,9 @@ def main() -> None:
         from pyqsm_tpu_torch.models import graph_features, joining, reconstruction, segmentation
         from pyqsm_tpu_torch.ops import features
         from pyqsm_tpu_torch.pipeline import driver
+        from pyqsm_tpu_torch.ops import geometry, octree, outliers
+        from pyqsm_tpu_torch.ops import mesh as tm
+        from pyqsm_tpu_torch.ops import neighbors as tn
     except ImportError as exc:
         fail(f"the pyqsm_tpu_torch package is not beside this script ({exc})", 3)
 
@@ -3194,6 +3679,30 @@ def main() -> None:
                                      for s, r in drv["results"].items()},
                                  "join": jn17, "viz": viz17, "card_cpu": scc}}, default=str),
           flush=True)
+    # 18. the last slice's modules on the main path's plot: (a) the grid
+    # index and its queries, (b) clean_cloud, (c) the scipy meshes with
+    # map_density, (d) the octree and the geometry helpers, (e) the sharded
+    # multi-tree step, each drive with the counters set to 0 just before
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    p18, c18 = {}, {}
+    for part, drive in (
+            ("grid index (18a)", lambda: grid_index_path(tn, tn.knn, sampling, pts, small)),
+            ("clean_cloud (18b)", lambda: clean_cloud_path(outliers, pts, res.growth.labels,
+                                                           res.trees[big].tree_id, small)),
+            ("meshes (18c)", lambda: meshes_path(tm, tmr, sampling, pts)),
+            ("octree, geometry (18d)", lambda: octree_geometry_path(
+                octree, geometry, pts, res.growth.labels, res.trees)),
+            ("sharded step (18e)", lambda: sharded_step_path(launch, sampling, pts,
+                                                             res.growth.labels, res.trees))):
+        zero_launches(bm, mt)
+        t_part = time.perf_counter()
+        p18[part] = drive()
+        c18[part] = launch_counts(bm, mt)
+        log("last_slice", f"{part} in {time.perf_counter() - t_part:.2f}s, kernel launches "
+            f"{c18[part]}")
+    log("last_slice", f"phase 18 in {time.perf_counter() - t18:.2f}s")
+    print(json.dumps({"last_slice": p18}, default=str), flush=True)
     paths = {"main (phase 5)": main_counts, "canopy (13a)": cp["counts"],
              "single-tree skeletonize (13b)": single["skeletonize"]["launches"],
              "single-tree canopy_metrics (13b)": single["canopy_metrics"]["launches"],
@@ -3201,7 +3710,7 @@ def main() -> None:
              "wavefront (15a-b)": wfp["counts"],
              "sharded raycast, 4 ranks (15c)": shr["counts"],
              "sphere walk (16a)": walk_counts, "CLI entry points (16b)": cli_counts,
-             "sphere forest (16c)": forest_counts, "batch driver (17b-c)": driver_counts}
+             "sphere forest (16c)": forest_counts, "batch driver (17b-c)": driver_counts, **c18}
 
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]

@@ -15,7 +15,14 @@ Mirrors the JAX package's layout (``config``, ``state``, ``ops/``,
   ``sphere_qsm_forest`` (the sphere-following QSM);
 - ``pipeline.cli``: the console commands' ``main`` functions
   (``python -m pyqsm_tpu_torch.pipeline.cli`` isolates trees), on
-  ``io.readers`` and ``io.artifacts``.
+  ``io.readers`` and ``io.artifacts``; ``pipeline.driver``, the batch
+  driver;
+- ``ops``: among the building blocks, the grid index and its queries
+  (``neighbors``), the scipy meshes and ``map_density`` (``mesh``), the
+  octree, ``outliers.clean_cloud``;
+- ``parallel.multi_tree_pipeline_step``, the sharded multi-tree step, on
+  ``parallel.collective_ops``; ``utils``: colouring and snapshots
+  (``viz``), TensorBoard events (``tbevents``), the Laplacian oracle.
 
 Four hand-written CUDA kernels (``csrc/``) replace the JAX package's
 Pallas kernels: ``band_matvec``, ``band_matvec_t`` and ``band_matvec_bf16``

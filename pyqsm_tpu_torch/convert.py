@@ -1,9 +1,9 @@
 """Carry configuration and state across from the JAX package.
 
-What crosses over is configuration, state and the wood/leaf classifier's
-weights. The JAX package's containers arrive as dicts of numpy arrays (e.g.
-``{f: np.asarray(getattr(L, f)) for f in L._fields}``), so this module
-needs nothing of that package.
+What crosses over is configuration, state, grid indexes and the wood/leaf
+classifier's weights. The JAX package's containers arrive as dicts of
+numpy arrays (e.g. ``{f: np.asarray(getattr(L, f)) for f in L._fields}``),
+so this module needs nothing of that package.
 """
 
 from __future__ import annotations
@@ -72,6 +72,20 @@ def mesh_from_numpy(vertices, triangles, device: str | torch.device = DEFAULT_DE
     dev = resolve_device(device)
     return TriMesh(torch.as_tensor(np.asarray(vertices, np.float32), device=dev),
                    torch.as_tensor(np.asarray(triangles, np.int32), device=dev))
+
+
+def grid_index_from_jax(fields: dict, device: str | torch.device = DEFAULT_DEVICE):
+    """The port's ``ops.neighbors.GridIndex`` from the JAX package's (its
+    fields as a dict of numpy arrays, e.g. ``{f.name: np.asarray(
+    getattr(index, f.name)) for f in dataclasses.fields(index)}``), on
+    ``device``; ``cell_size`` a Python float."""
+    from pyqsm_tpu_torch.ops.neighbors import GridIndex
+
+    dev = resolve_device(device)
+    dtypes = dict(sorted_points=np.float32, sorted_idx=np.int32, sorted_cell=np.int32,
+                  origin=np.float32, dims=np.int32)
+    return GridIndex(**{f: torch.as_tensor(np.array(fields[f], t), device=dev)
+                        for f, t in dtypes.items()}, cell_size=float(fields["cell_size"]))
 
 
 def hits_to_numpy(hits) -> dict:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -38,3 +39,9 @@ def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype or x.dtype)
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array on the
+    host."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

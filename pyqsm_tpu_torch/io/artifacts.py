@@ -15,20 +15,16 @@ from typing import Any
 import numpy as np
 import torch
 
-from pyqsm_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from pyqsm_tpu_torch.device import DEFAULT_DEVICE, resolve_device, to_numpy
 from pyqsm_tpu_torch.state import Cylinders, PointCloud
 
 
-def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def save_artifact(path: str | Path, cloud: PointCloud) -> None:
-    arrs = {"points": _np(cloud.points), "mask": _np(cloud.mask)}
+    arrs = {"points": to_numpy(cloud.points), "mask": to_numpy(cloud.mask)}
     for name in ("colors", "intensity", "normals", "labels", "tree_id", "shift"):
         v = getattr(cloud, name)
         if v is not None:
-            arrs[name] = _np(v)
+            arrs[name] = to_numpy(v)
     np.savez_compressed(path, **arrs)
 
 
@@ -39,7 +35,7 @@ def load_artifact(path: str | Path, device: str | torch.device = DEFAULT_DEVICE)
 
 
 def save_cylinders(path: str | Path, cyls: Cylinders) -> None:
-    np.savez_compressed(path, **{f: _np(getattr(cyls, f)) for f in Cylinders._fields})
+    np.savez_compressed(path, **{f: to_numpy(getattr(cyls, f)) for f in Cylinders._fields})
 
 
 def load_cylinders(path: str | Path, device: str | torch.device = DEFAULT_DEVICE) -> Cylinders:
@@ -64,7 +60,7 @@ def _jsonify(obj: Any) -> Any:
     if isinstance(obj, (np.floating, np.integer)):
         return obj.item()
     if isinstance(obj, (np.ndarray, torch.Tensor)):
-        return _np(obj).tolist()
+        return to_numpy(obj).tolist()
     return obj
 
 

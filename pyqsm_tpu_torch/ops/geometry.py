@@ -1,7 +1,7 @@
-"""Geometric utilities on the main path: percentile selection, region
-masks, the Rodrigues rotation of the cylinder fit and the PCA-oriented
-bounding box of the contraction clamp (counterparts of
-``pyqsm_tpu/ops/geometry.py:21-176``)."""
+"""Geometric utilities: percentile selection, region masks, the Rodrigues
+rotation of the cylinder fit, centres and radii of a cloud, the footprint
+tiling and the PCA-oriented bounding box of the contraction clamp
+(counterparts of ``pyqsm_tpu/ops/geometry.py:21-176``)."""
 
 from __future__ import annotations
 
@@ -39,6 +39,23 @@ def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float,
     high = torch.clamp(torch.minimum(high, cnt - 1.0), min=0.0).long()
     # low·lw + high·hw with the second product fused (XLA's FMA), emulated
     # in float64: one product exact, one rounding to float32
+    return ((s[low] * lw).double() + s[high].double() * hw.double()).float()
+
+
+def percentile(values: torch.Tensor, q: float) -> torch.Tensor:
+    """Linear-interpolated percentile of a whole float32 vector, in the
+    arithmetic of ``jnp.percentile`` on it: XLA folds ``q / 100 · (n − 1)``
+    (n known when it compiles) into ``q · f32(f32(n − 1) · f32(0.01))``."""
+    s, _ = torch.sort(values)
+    n = values.shape[0]
+    scale = torch.tensor(float(n - 1), dtype=torch.float32) * torch.tensor(0.01)
+    pos = (torch.tensor(q, dtype=torch.float32) * scale).to(values.device)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1.0 - hw
+    low = torch.clamp(low, 0.0, n - 1.0).long()
+    high = torch.clamp(high, 0.0, n - 1.0).long()
+    # the second product fused, as in masked_percentile
     return ((s[low] * lw).double() + s[high].double() * hw.double()).float()
 
 
@@ -111,6 +128,46 @@ def rotation_matrix_from_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     r180 = 2.0 * axis[..., :, None] * axis[..., None, :] - eye
     par = torch.where((c > 0)[..., None, None], eye, r180)
     return torch.where((s2 < 1e-16)[..., None, None], par, R)
+
+
+def get_center(points: torch.Tensor, mask: torch.Tensor, method: str = "centroid") -> torch.Tensor:
+    """Centroid, top or bottom centre: the xy centroid with the mean z, or
+    the live rows' largest or smallest z."""
+    w = mask.to(points.dtype)
+    n = torch.clamp(w.sum(), min=1.0)
+    cx = (points[:, 0] * w).sum() / n
+    cy = (points[:, 1] * w).sum() / n
+    if method == "centroid":
+        cz = (points[:, 2] * w).sum() / n
+    elif method == "top":
+        cz = torch.where(mask, points[:, 2], float("-inf")).amax()
+    elif method == "bottom":
+        cz = torch.where(mask, points[:, 2], float("inf")).amin()
+    else:
+        raise ValueError(method)
+    return torch.stack([cx, cy, cz])
+
+
+def get_radius(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean xy distance of the live rows from their xy centroid."""
+    c = get_center(points, mask, method="centroid")
+    d = torch.sqrt((points[:, 0] - c[0]) ** 2 + (points[:, 1] - c[1]) ** 2)
+    w = mask.to(points.dtype)
+    return (d * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def generate_grid(lo: tuple[float, float], hi: tuple[float, float], nx: int = 2, ny: int = 3,
+                  overlap: float = 1.0 / 7.0) -> list[tuple[tuple[float, float],
+                                                            tuple[float, float]]]:
+    """Overlapping 2D tiling of the plot footprint (the reference's 2×3
+    cells with 1/7 overlap), host-side."""
+    x0, y0 = lo
+    x1, y1 = hi
+    w = (x1 - x0) / nx
+    h = (y1 - y0) / ny
+    ox, oy = w * overlap, h * overlap
+    return [((x0 + i * w - ox, y0 + j * h - oy), (x0 + (i + 1) * w + ox, y0 + (j + 1) * h + oy))
+            for i in range(nx) for j in range(ny)]
 
 
 def obb_axes(points: torch.Tensor, mask: torch.Tensor):

@@ -42,9 +42,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pyqsm_tpu_torch.device import input_device
+from pyqsm_tpu_torch.device import input_device, to_numpy
 from pyqsm_tpu_torch.ops.neighbors import _fma
-from pyqsm_tpu_torch.ops.raygrid import _host
 from pyqsm_tpu_torch.ops.raytrace import Hits, mt_components
 from pyqsm_tpu_torch.ops.sampling import nonzero_rows
 
@@ -113,8 +112,8 @@ def build_grid3d(vertices, triangles, target_tris_per_cell: float = 4.0,
     ``residual``. An explicit ``cell_cap`` raises ``ValueError`` when a cell
     holds more."""
     dev = input_device(vertices, device)
-    verts = _host(vertices).astype(np.float64)
-    tris = _host(triangles)
+    verts = to_numpy(vertices).astype(np.float64)
+    tris = to_numpy(triangles)
     live = tris[:, 0] >= 0
     t = np.maximum(tris, 0)
     p0, p1, p2 = verts[t[:, 0]], verts[t[:, 1]], verts[t[:, 2]]
@@ -262,9 +261,9 @@ def build_grid3d_two_level(vertices, triangles, min_residual: int = 256,
     g = build_grid3d(vertices, triangles, **build_kw)
     if g.n_residual < min_residual:
         return g
-    res_ids = _host(g.residual)[: g.n_residual]
-    tris = _host(triangles)
-    verts = _host(vertices)
+    res_ids = to_numpy(g.residual)[: g.n_residual]
+    tris = to_numpy(triangles)
+    verts = to_numpy(vertices)
     t = np.maximum(tris[res_ids], 0)
     ext = (np.max([verts[t[:, i]] for i in range(3)], axis=0)
            - np.min([verts[t[:, i]] for i in range(3)], axis=0)).max(1)

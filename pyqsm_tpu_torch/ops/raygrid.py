@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pyqsm_tpu_torch.device import to_numpy
 from pyqsm_tpu_torch.ops.neighbors import _fma, _sq3, _sqrt
 from pyqsm_tpu_torch.ops.raytrace import Hits, cast_rays, mt_components
 
@@ -207,11 +208,6 @@ def grid_cast_parallel(grid: RayGrid, origins: torch.Tensor, dirs: torch.Tensor,
     return _grid_cast(origins, dirs, grid, ray_tile=ray_tile)
 
 
-def _host(x) -> np.ndarray:
-    """A tensor or array-like as a numpy array on the host."""
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def _block_size(limit: int, cap: int, rays: int) -> int:
     """Tiles or cells a block: at most ``limit`` and ``_BLOCK_ELEMS`` elements
     an intermediate, a power of two."""
@@ -255,9 +251,9 @@ def build_image_grid(vertices: torch.Tensor, triangles: torch.Tensor, eye, cente
     """Host-built screen-space grid (one sort) for the pinhole bundle of
     ``pinhole_rays(eye, center, up, fov_deg, width_px, height_px)``,
     returned on the mesh's device."""
-    eye = _host(eye).astype(np.float64)
-    center = _host(center).astype(np.float64)
-    up = _host(up).astype(np.float64)
+    eye = to_numpy(eye).astype(np.float64)
+    center = to_numpy(center).astype(np.float64)
+    up = to_numpy(up).astype(np.float64)
     fwd = center - eye
     fwd /= max(np.linalg.norm(fwd), 1e-12)
     right = np.cross(fwd, up)
@@ -266,9 +262,9 @@ def build_image_grid(vertices: torch.Tensor, triangles: torch.Tensor, eye, cente
     half = float(np.tan(np.radians(fov_deg) / 2.0))
     aspect = width_px / height_px
 
-    tris = _host(triangles)
+    tris = to_numpy(triangles)
     live = tris[:, 0] >= 0
-    verts = _host(vertices).astype(np.float64)
+    verts = to_numpy(vertices).astype(np.float64)
     t = np.maximum(tris, 0)
     p = np.stack([verts[t[:, 0]], verts[t[:, 1]], verts[t[:, 2]]], 1)  # [T, 3, 3]
     rel = p - eye
@@ -590,7 +586,7 @@ def cell_cast_origins(grid: RayGrid, direction, rays_per_cell_side: int = 4,
     dev = grid.u.device
     if cell_ids is None:
         cell_ids = torch.arange(grid.nx * grid.ny, dtype=torch.int32, device=dev)
-    d = _unit(torch.as_tensor(_host(direction), dtype=torch.float32, device=dev))
+    d = _unit(torch.as_tensor(to_numpy(direction), dtype=torch.float32, device=dev))
     return _cell_origins(d, grid.u, grid.v, grid.origin_uv, grid.cell, grid.ny, cell_ids,
                          rays_per_cell_side, back_dist)
 
@@ -650,7 +646,7 @@ def cell_cast_parallel(grid: RayGrid, direction, rays_per_cell_side: int = 4,
     (the sun/rain flux path; ray density = rays_per_cell_side / cell)."""
     dev = grid.u.device
     t, tri, cnt = _cell_cast(
-        torch.as_tensor(_host(direction), dtype=torch.float32, device=dev), grid.u, grid.v,
+        torch.as_tensor(to_numpy(direction), dtype=torch.float32, device=dev), grid.u, grid.v,
         grid.origin_uv, grid.cell, grid.nx, grid.ny, grid.tri_of_slot, grid.v0, grid.e1,
         grid.e2, grid.valid, rpc_side=rays_per_cell_side, cell_tile=cell_tile,
         back_dist=back_dist, cell_rows=grid.cell_rows, packed_cells=bool(grid.packed_cells))

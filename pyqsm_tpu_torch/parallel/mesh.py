@@ -4,11 +4,14 @@
 The JAX package lays one program over a device mesh; here every rank is a
 process that calls the same entry point on the same inputs (SPMD) and gets
 the same full result back, as the JAX package returns replicated outputs.
-Work is split by rank, and the ranks exchange rows with two collectives:
+Work is split by rank, and the ranks exchange rows with three collectives,
+over the whole mesh or along one of its axes:
 
 - ``all_gather_rows`` — every rank's rows, concatenated in rank order
   (``jax.lax.all_gather(..., tiled=True)``);
-- ``all_reduce_sum`` — the elementwise sum over ranks (``jax.lax.psum``).
+- ``all_reduce_sum`` — the elementwise sum over ranks (``jax.lax.psum``);
+- ``ring_shift`` — each rank's tensor to its right neighbour along an axis
+  (``jax.lax.ppermute`` with ``perm = [(i, i + 1 mod n)]``).
 
 Under NCCL they act on the device tensors. Under gloo they copy through
 host memory explicitly: gloo's support for CUDA tensors is partial, and
@@ -40,13 +43,16 @@ from pyqsm_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 class Mesh(NamedTuple):
     """This rank's view of a process mesh: the process group (None = the
     default group), the axis names and sizes (their product is the group's
-    size; ranks are laid out row-major over the axes) and the device this
-    rank computes on."""
+    size; ranks are laid out row-major over the axes), the device this
+    rank computes on and, for each axis, the global ranks of this rank's
+    row along it (in axis order) and that row's process group."""
 
     group: object
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
     device: torch.device
+    axis_ranks: dict = {}
+    axis_groups: dict = {}
 
     @property
     def size(self) -> int:
@@ -66,6 +72,15 @@ class Mesh(NamedTuple):
         for name, size in zip(reversed(self.axis_names), reversed(self.axis_sizes)):
             r, out[name] = divmod(r, size)
         return {n: out[n] for n in self.axis_names}
+
+    def axis_size(self, axis: str | None = None) -> int:
+        return self.size if axis is None else self.axis_sizes[self.axis_names.index(axis)]
+
+    def axis_index(self, axis: str | None = None) -> int:
+        return self.rank if axis is None else self.coords()[axis]
+
+    def axis_group(self, axis: str | None = None):
+        return self.group if axis is None else self.axis_groups[axis]
 
 
 def _rank_device(device: str | torch.device) -> torch.device:
@@ -95,7 +110,22 @@ def make_mesh(axis_sizes: dict[str, int] | None = None, group=None,
     sizes = tuple(int(axis_sizes[a]) for a in names)
     if math.prod(sizes) != n:
         raise ValueError(f"mesh {axis_sizes} != {n} ranks")
-    return Mesh(group, names, sizes, _rank_device(device))
+    me = dist.get_rank(group)
+    glob = [r if group is None else dist.get_global_rank(group, r) for r in range(n)]
+    axis_ranks, axis_groups = {}, {}
+    for a, size in enumerate(sizes):
+        stride = math.prod(sizes[a + 1:])
+        # the rows along axis a: ranks that agree on every other coordinate,
+        # each created by every rank in the same order (NCCL requires it);
+        # an axis spanning the whole mesh uses the mesh's group
+        for base in range(n):
+            if (base // stride) % size:
+                continue
+            row = [glob[base + i * stride] for i in range(size)]
+            g = group if size == n else dist.new_group(row)
+            if glob[me] in row:
+                axis_ranks[names[a]], axis_groups[names[a]] = tuple(row), g
+    return Mesh(group, names, sizes, _rank_device(device), axis_ranks, axis_groups)
 
 
 def tree_points_mesh(n_trees_axis: int | None = None, group=None,
@@ -126,31 +156,55 @@ def shard_tree_batch(arr: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out.to(mesh.device).contiguous()
 
 
-def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, mesh: Mesh, axis: str | None = None) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated along dim 0 in rank
-    order, on ``x``'s device."""
+    order, over the whole mesh or along ``axis`` (this rank's row of it),
+    on ``x``'s device."""
     if x.dtype == torch.bool:  # sent as bytes: not every backend takes bool
-        return all_gather_rows(x.to(torch.uint8), mesh).to(torch.bool)
+        return all_gather_rows(x.to(torch.uint8), mesh, axis).to(torch.bool)
+    group, size = mesh.axis_group(axis), mesh.axis_size(axis)
     if mesh.backend == "nccl":
-        out = torch.empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+        out = torch.empty((size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
-        dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
         return out
     host = x.detach().cpu().contiguous()
-    parts = [torch.empty_like(host) for _ in range(mesh.size)]
-    dist.all_gather(parts, host, group=mesh.group)
+    parts = [torch.empty_like(host) for _ in range(size)]
+    dist.all_gather(parts, host, group=group)
     return torch.cat(parts, dim=0).to(x.device)
 
 
-def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The elementwise sum of every rank's ``x``, on ``x``'s device."""
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str | None = None) -> torch.Tensor:
+    """The elementwise sum of every rank's ``x``, over the whole mesh or
+    along ``axis``, on ``x``'s device."""
+    group = mesh.axis_group(axis)
     if mesh.backend == "nccl":
         out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out
     host = x.detach().cpu().clone()
-    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
     return host.to(x.device)
+
+
+def ring_shift(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The ``x`` of this rank's left neighbour along ``axis`` (index
+    i − 1 mod n), each rank sending its own to the right: one
+    ``batch_isend_irecv`` pair, on ``x``'s device."""
+    if x.dtype == torch.bool:
+        return ring_shift(x.to(torch.uint8), mesh, axis).to(torch.bool)
+    row, i = mesh.axis_ranks[axis], mesh.axis_index(axis)
+    n = len(row)
+    if n == 1:
+        return x.clone()
+    send = x.contiguous() if mesh.backend == "nccl" else x.detach().cpu().contiguous()
+    recv = torch.empty_like(send)
+    group = mesh.axis_group(axis)
+    ops = [dist.P2POp(dist.isend, send, row[(i + 1) % n], group),
+           dist.P2POp(dist.irecv, recv, row[(i - 1) % n], group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(x.device)
 
 
 def _to_cpu(obj):

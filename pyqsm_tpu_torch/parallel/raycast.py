@@ -30,10 +30,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from pyqsm_tpu_torch.device import as_tensor
+from pyqsm_tpu_torch.device import as_tensor, to_numpy
 from pyqsm_tpu_torch.ops.grid3d import grid_cast
 from pyqsm_tpu_torch.ops.raygrid import (CellCastResult, _assemble_image, _cell_cast_rows,
-                                         _host, _image_cast_tiles, _merge_residual)
+                                         _image_cast_tiles, _merge_residual)
 from pyqsm_tpu_torch.ops.raytrace import Hits, cast_rays
 from pyqsm_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 
@@ -133,7 +133,7 @@ def sharded_cell_cast(mesh: Mesh, grid, direction, rays_per_cell_side: int = 4,
     packed = bool(g.packed_cells)
     rows = F.pad(g.cell_rows[start:stop], (0, 0, 0, pad)) if packed else None
     cell_ids = torch.arange(p * per, (p + 1) * per, dtype=torch.int32, device=dev)
-    d = torch.as_tensor(_host(direction), dtype=torch.float32, device=dev)
+    d = torch.as_tensor(to_numpy(direction), dtype=torch.float32, device=dev)
     t, tri, cnt = _cell_cast_rows(d, g.u, g.v, g.origin_uv, g.cell, g.nx, g.ny, table, cell_ids,
                                   g.v0, g.e1, g.e2, g.valid, rays_per_cell_side, cell_tile,
                                   back_dist, rows_strip=rows, packed_cells=packed)

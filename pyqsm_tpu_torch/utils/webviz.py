@@ -13,7 +13,8 @@ import json
 from pathlib import Path
 
 import numpy as np
-import torch
+
+from pyqsm_tpu_torch.device import to_numpy
 
 # 12 visually-distinct label colors (cycled); label -1 renders dim gray
 _PALETTE = np.array([
@@ -21,10 +22,6 @@ _PALETTE = np.array([
     [170, 110, 230], [230, 120, 180], [110, 220, 220], [250, 160, 90],
     [140, 180, 70], [100, 120, 240], [220, 90, 90], [90, 230, 170],
 ], np.uint8)
-
-
-def _np(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _b64(a: np.ndarray) -> str:
@@ -74,7 +71,7 @@ def export_viewer(
     note = ""
 
     if points is not None:
-        pts = _np(points).astype(np.float32, copy=False)
+        pts = to_numpy(points).astype(np.float32, copy=False)
         n = len(pts)
         keep = None
         if n > max_points:
@@ -82,7 +79,7 @@ def export_viewer(
             pts = pts[keep]
             note = f"subsampled {len(pts):,} of {n:,} points"
         if colors is not None:
-            col = _np(colors)
+            col = to_numpy(colors)
             if keep is not None:
                 col = col[keep]
             if col.dtype != np.uint8:
@@ -90,7 +87,7 @@ def export_viewer(
                 col = (col * (255.0 if cmax <= 1.0 else 1.0)).clip(0, 255)
                 col = col.astype(np.uint8)
         elif labels is not None:
-            lab = _np(labels).astype(np.int64)
+            lab = to_numpy(labels).astype(np.int64)
             if keep is not None:
                 lab = lab[keep]
             col = np.where(
@@ -106,8 +103,8 @@ def export_viewer(
         ))
 
     if mesh_vertices is not None and mesh_triangles is not None:
-        mv = _np(mesh_vertices).astype(np.float32, copy=False)
-        mt = _np(mesh_triangles).astype(np.int32, copy=False)
+        mv = to_numpy(mesh_vertices).astype(np.float32, copy=False)
+        mt = to_numpy(mesh_triangles).astype(np.int32, copy=False)
         mt = mt[mt[:, 0] >= 0]
         layers.append(dict(
             kind="mesh", name="mesh",
@@ -117,8 +114,8 @@ def export_viewer(
 
     if cylinders is not None:
         c = cylinders
-        m = _np(c.mask)
-        center, axis, height, radius = (_np(a) for a in (c.center, c.axis, c.height,
+        m = to_numpy(c.mask)
+        center, axis, height, radius = (to_numpy(a) for a in (c.center, c.axis, c.height,
                                                           c.radius))
         verts_all, tris_all = [], []
         off = 0

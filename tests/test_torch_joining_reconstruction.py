@@ -78,8 +78,12 @@ def test_grid_self_radius_knn_distances_equal(k, max_bucket):
     _eq(ti, ji)
     _eq(td, jd)
     assert (ti.numpy()[:, -1] >= 0).any()
-    with pytest.raises(NotImplementedError):
-        tn.grid_self_radius_knn(_t(pts), 0.35, k, _t(m))
+    # the sorted query (the JAX package's default) on the same cloud
+    jd, ji = jn.grid_self_radius_knn(jnp.asarray(pts), 0.35, k, jnp.asarray(m),
+                                     max_bucket=max_bucket)
+    td, ti = tn.grid_self_radius_knn(_t(pts), 0.35, k, _t(m), max_bucket=max_bucket)
+    _eq(ti, ji)
+    _eq(td, jd)
 
 
 def test_label_adjacency_equal():

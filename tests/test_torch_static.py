@@ -42,7 +42,9 @@ REQUIRED = ["ops/band_matvec.py", "ops/cuda_build.py", "ops/mt_raycast.py", "ops
             "pipeline/cli.py", "ops/features.py", "models/segmentation.py",
             "models/graph_features.py", "models/joining.py", "models/reconstruction.py",
             "io/native.py", "pipeline/__init__.py", "pipeline/driver.py", "utils/__init__.py",
-            "utils/logging.py", "utils/timing.py", "utils/webviz.py"]
+            "utils/logging.py", "utils/timing.py", "utils/webviz.py", "ops/octree.py",
+            "parallel/collective_ops.py", "parallel/pipeline_step.py", "utils/viz.py",
+            "utils/_plasma.py", "utils/tbevents.py", "utils/laplacian_oracle.py"]
 
 
 def test_import_scan_covers_every_port_module():
@@ -289,3 +291,57 @@ def test_config_matches_jax_package():
     ref = jc.Config().replace(isolation=jc.IsolationConfig(max_dist=0.2, cycles=400))
     assert dataclasses.asdict(config_from_reference(dataclasses.asdict(ref))) == \
         dataclasses.asdict(ref)
+
+
+def test_last_slice_entry_points_ask_for_the_card():
+    """The grid index and its queries given numpy input, the scipy meshes,
+    ``map_density``, ``clean_cloud`` and the sharded step build or run on
+    the card unless told otherwise: without one they raise."""
+    import numpy as np
+
+    from pyqsm_tpu_torch.ops import mesh as tm
+    from pyqsm_tpu_torch.ops import neighbors as tn
+    from pyqsm_tpu_torch.ops.outliers import clean_cloud
+    from pyqsm_tpu_torch.parallel.mesh import Mesh
+    from pyqsm_tpu_torch.parallel.pipeline_step import multi_tree_pipeline_step
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    pts = np.random.default_rng(0).uniform(size=(64, 3)).astype(np.float32)
+    ones = np.ones(64, bool)
+    index = tn.build_grid(torch.as_tensor(pts), 0.3)
+    assert index.sorted_points.device.type == "cpu"
+    calls = [lambda: tn.build_grid(pts, 0.3),
+             lambda: tn.grid_radius_knn(index, pts[:4], 0.3, 4),
+             lambda: tn.grid_radius_any_k(index, pts[:4], 0.3, 4),
+             lambda: tn.grid_self_radius_knn(pts, 0.3, 4),
+             lambda: tm.canopy_surface_mesh(pts),
+             lambda: tm.alpha_complex_mesh(pts, 1.0),
+             lambda: tm.map_density(tm.TriMesh(pts[:3], np.zeros((1, 3), np.int32)), pts),
+             lambda: clean_cloud(pts, ones),
+             lambda: multi_tree_pipeline_step(Mesh(None, ("trees", "points"), (1, 1),
+                                                   torch.device("cuda")))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for fn in (tm.canopy_surface_mesh, tm.alpha_complex_mesh):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert tn.grid_radius_knn(index, torch.as_tensor(pts[:4]), 0.3, 4)[1].device.type == "cpu"
+
+
+def test_plasma_colours_need_no_matplotlib():
+    """The card's machine has no matplotlib: ``color_continuous_map`` with
+    the package's one map (and ``map_density``) imports none."""
+    import subprocess
+    import sys
+
+    code = ("import sys, torch\n"
+            "from pyqsm_tpu_torch.ops.mesh import map_density, sphere_mesh\n"
+            "from pyqsm_tpu_torch.utils.viz import color_continuous_map\n"
+            "assert color_continuous_map([0.0, 1.0, float('nan')]).shape == (3, 3)\n"
+            "m = sphere_mesh([0.0, 0, 0], 1.0, device='cpu')\n"
+            "map_density(m, torch.zeros(5, 3), density_threshold_pctile=10.0)\n"
+            "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
