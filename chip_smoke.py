@@ -205,7 +205,18 @@ Phases, each printing lines with the elapsed seconds:
    package's does; the tie rows and the contraction's difference are
    printed); the JAX test's two 512-row branches on the card's ranks
    against 4 gloo ranks on the CPU: labels and fits equal, contraction
-   within 1e-4 m.
+   within 1e-4 m;
+19. the bench's two configurations on its 10 M-point plot
+   (``synthetic_plot(10_000_000, 8, seed)``, bench.py:39-54): (a)
+   ``process_plot`` at phase 5's settings, a cold and a steady call, the
+   counters set to 0 just before the cold one and read just after (stage
+   seconds, peak memory, cycles, ``band_matvec`` launches): 8 of 8 trees
+   with finite cylinders, the steady call equal to the cold one bit for
+   bit; (b) ``build_trees`` at ``IsolationConfig()``, the reference's
+   defaults (bench.py:533-565), cold then steady (seconds, trees counted
+   by ``label_segments``, claim, cycles, peak memory; the two calls equal),
+   then on phase 4's plot and on a 160 000-point plot in the bench's layout
+   on the card and on the CPU: labels, order and cycles equal.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -243,6 +254,8 @@ BUDGET_S = 1000  # wall-clock limit of the whole script, build included
 VOXEL_CHECK_ROWS = 30_000  # rows of phase 17a's numpy voxelizer check
 SHARDED_RANKS = 4  # ranks of the sharded path (phase 11)
 DDA_RAY_TILE = 1 << 20  # rays a tile of phase 14's 10⁶-ray DDA cast: the whole bundle
+BENCH_POINTS = 10_000_000  # the bench's headline plot (bench.py:39-54, 283-320)
+DEFAULTS_CHECK_POINTS = 160_000  # phase 19b's card = CPU plot in the bench's layout
 
 
 def log(phase: str, msg: str) -> None:
@@ -759,6 +772,25 @@ def report_widths(name: str, widths: list[dict]) -> None:
         fail(f"{name}: kernel disagrees with its plain version at (C, nb) {bad} on 2 trees")
 
 
+def same_growth(a, b) -> bool:
+    """Labels, claim cycles and cycle counts of two ``build_trees`` results
+    (on any devices) equal bit for bit."""
+    import torch
+
+    return (torch.equal(a.labels.cpu(), b.labels.cpu()) and torch.equal(a.order.cpu(), b.order.cpu())
+            and a.cycles_run == b.cycles_run)
+
+
+def same_plot(a, b) -> bool:
+    """Labels and every cylinder field of two ``process_plot`` results on
+    one device equal bit for bit."""
+    import torch
+
+    return torch.equal(a.growth.labels, b.growth.labels) and len(a.trees) == len(b.trees) and all(
+        torch.equal(getattr(x.cylinders, f), getattr(y.cylinders, f))
+        for x, y in zip(a.trees, b.trees) for f in y.cylinders._fields)
+
+
 def band_claim_path(ti, bm, process_plot, Config, pts, mask, iso_cfg, main_trees, plot_kw) -> dict:
     """Phase 9: ``build_trees`` with the band claim and with the default
     push claim, in turns, twice each; then one ``process_plot`` under the
@@ -794,8 +826,7 @@ def band_claim_path(ti, bm, process_plot, Config, pts, mask, iso_cfg, main_trees
             fail("PYQSM_CLAIM=band did not run the band claim")
         if rp.claim == "band":
             fail("the default claim ran the band claim")
-        same = (torch.equal(rb.labels, rp.labels) and torch.equal(rb.order, rp.order)
-                and rb.cycles_run == rp.cycles_run)
+        same = same_growth(rb, rp)
         out["band_info"] = dict(ti.LAST_BAND)
         log("band_claim", f"band {out['band_info']}; band == push bit for bit: {same}; second "
             f"runs band {band['s']:.4f}s / push {push['s']:.4f}s")
@@ -3199,7 +3230,7 @@ def step_rank(trees, mask, seed: int, n_trees_axis: int, small=None, mesh=None) 
     out["res"] = res
     # the step's neighbour lists (its first stage again, outside the timed calls)
     knn = [ring_knn(torch.where(m[:, None], p, 1e6), torch.where(m[:, None], p, 1e6), m,
-                    STEP_KW["k"] + 1, tp, "points") for p, m in zip(blk, mblk)]
+                    STEP_KW["k"] + 1, "points", mesh=tp) for p, m in zip(blk, mblk)]
     out["res"].update(knn_d=torch.stack([d[:, 1:] for d, _ in knn]),
                       knn_i=torch.stack([i[:, 1:] for _, i in knn]))
     if small is not None:
@@ -3332,6 +3363,118 @@ def sharded_step_path(launch, sampling, pts, labels, trees) -> dict:
     if not all(checks.values()):
         fail(f"the sharded multi-tree step failed a check: "
              f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
+def bench_plot_path(bm, mt, process_plot, Config, pts, iso_cfg, plot_kw) -> dict:
+    """Phase 19 (a): ``process_plot`` on the bench's 10 M-point plot at
+    phase 5's settings, a cold and a steady call, the counters set to 0
+    just before the cold call and read just after it."""
+    import torch
+
+    mask = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    out = {"points": int(pts.shape[0])}
+    runs = {}
+    for call in ("cold", "steady"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(bm, mt)
+        t = time.perf_counter()
+        runs[call] = process_plot(pts, mask, Config(), iso_cfg, **plot_kw, device="cuda")
+        torch.cuda.synchronize()
+        r = runs[call]
+        out[call] = dict(s=time.perf_counter() - t, stages=r.timings,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         launches=launch_counts(bm, mt))
+        log("bench_plot", f"{call} process_plot on {pts.shape[0]} points: "
+            f"{out[call]['s']:.3f}s, stages {r.timings}, cycles {r.growth.cycles_run} claim "
+            f"{r.growth.claim}, band_matvec launches {out[call]['launches']['band_matvec']}, "
+            f"max_memory_allocated {out[call]['peak_gib']:.3f} GiB")
+    res = runs["cold"]
+    n_cyl = [int(t.cylinders.count()) for t in res.trees]
+    finite = all(bool(torch.isfinite(t.cylinders.radius).all())
+                 and bool(torch.isfinite(t.cylinders.center).all()) for t in res.trees)
+    out.update(trees=[(t.tree_id, t.n_points) for t in res.trees], cylinders=n_cyl,
+               cycles=res.growth.cycles_run, claim=res.growth.claim,
+               steady_equal=same_plot(runs["steady"], res), counts=out["cold"]["launches"])
+    log("bench_plot", f"trees {out['trees']}, cylinders {n_cyl} total {sum(n_cyl)}; the steady "
+        f"call equals the cold one bit for bit: {out['steady_equal']}")
+    if len(res.trees) != N_TREES or not finite or min(n_cyl, default=0) < 1:
+        fail(f"the 10 M-point plot: {len(res.trees)} trees of {N_TREES}, cylinders {n_cyl}, "
+             f"finite {finite}")
+    if not out["steady_equal"]:
+        fail("two process_plot calls on the 10 M-point plot differ")
+    if out["counts"]["band_matvec"] <= 0:
+        fail("the 10 M-point plot never launched band_matvec")
+    return out
+
+
+def reference_defaults_path(bm, mt, ti, sampling, IsolationConfig, pts, small, seed) -> dict:
+    """Phase 19 (b): ``build_trees`` at ``IsolationConfig()`` (the
+    reference's defaults, bench.py:533-565) on the bench's plot, cold then
+    steady, trees counted on the device as the bench counts them; then
+    card = CPU on phase 4's plot and on a 160 000-point plot in the
+    bench's layout."""
+    import torch
+
+    ref_iso = IsolationConfig()
+    mask = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    # the radius graph holds neighbor_cap = 16 ids a row at any cfg.k
+    # (build_trees never reads k): reckon its bytes before the call
+    reps = int(sampling.voxel_downsample(pts, ref_iso.max_dist / 2.0, mask)[1].sum())
+    out = {"points": int(pts.shape[0]), "representatives": reps,
+           "graph_gib": reps * 16 * 4 / 2 ** 30}
+    log("ref_defaults", f"IsolationConfig() = {ref_iso}; {reps} representatives at "
+        f"{ref_iso.max_dist / 2.0} m, radius graph {out['graph_gib']:.3f} GiB of int32 ids "
+        f"(16 a row)")
+    runs = {}
+    for call in ("cold", "steady"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(bm, mt)
+        t = time.perf_counter()
+        g = ti.build_trees(pts, mask, ref_iso, device="cuda")
+        trees = int(sampling.label_segments(g.labels, u_cap=4096)[4])
+        torch.cuda.synchronize()
+        runs[call] = g
+        out[call] = dict(s=time.perf_counter() - t, trees=trees, cycles=g.cycles_run,
+                         claim=g.claim, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         launches=launch_counts(bm, mt))
+        log("ref_defaults", f"{call} build_trees(IsolationConfig()) on {pts.shape[0]} points: "
+            f"{out[call]['s']:.3f}s, trees found {trees}, claim {g.claim}, cycles "
+            f"{g.cycles_run}, max_memory_allocated {out[call]['peak_gib']:.3f} GiB")
+    out["counts"] = out["cold"]["launches"]
+    out["steady_equal"] = same_growth(runs["steady"], runs["cold"])
+    log("ref_defaults", f"the steady call equals the cold one (labels, order, cycles): "
+        f"{out['steady_equal']}")
+    if not out["steady_equal"]:
+        fail("two build_trees(IsolationConfig()) calls on the bench's plot differ")
+    # card = CPU at the defaults
+    plots = {"phase 4's two trees": small,
+             f"{DEFAULTS_CHECK_POINTS} points, bench layout":
+                 synthetic_plot(DEFAULTS_CHECK_POINTS, N_TREES, seed, "cuda").cpu().numpy()}
+    out["card_cpu"] = {}
+    for name, p in plots.items():
+        m = torch.ones(len(p), dtype=torch.bool)
+        t = time.perf_counter()
+        card = ti.build_trees(p, m, ref_iso, device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = ti.build_trees(p, m, ref_iso, device="cpu")
+        cpu_s = time.perf_counter() - t
+        lab = cpu.labels.numpy()
+        n = len(set(lab[lab >= 0].tolist()))
+        eq = same_growth(card, cpu)
+        out["card_cpu"][name] = dict(points=len(p), trees=n, claim=cpu.claim,
+                                     cycles=cpu.cycles_run, equal=eq, card_s=card_s, cpu_s=cpu_s)
+        log("ref_defaults", f"{name} ({len(p)} points) at IsolationConfig(): card {card_s:.3f}s, "
+            f"cpu {cpu_s:.3f}s; {n} trees, claim {cpu.claim}, cycles {cpu.cycles_run}; labels, "
+            f"order and cycles equal: {eq}")
+        if not eq:
+            fail(f"build_trees(IsolationConfig()) on {name}: the card and the CPU differ")
+    if out["card_cpu"][name]["trees"] < 1:  # the comparison must see grown trees
+        fail(f"build_trees(IsolationConfig()) found no tree on {name}")
     return out
 
 
@@ -3487,10 +3630,7 @@ def main() -> None:
     t_again = time.perf_counter()
     again = process_plot(pts, mask, Config(), iso_cfg, **plot_kw, device="cuda")
     torch.cuda.synchronize()
-    same_bits = torch.equal(again.growth.labels, res.growth.labels) and \
-        len(again.trees) == len(res.trees) and all(
-            torch.equal(getattr(a.cylinders, f), getattr(b.cylinders, f))
-            for a, b in zip(again.trees, res.trees) for f in b.cylinders._fields)
+    same_bits = same_plot(again, res)
     log("main", f"second process_plot on the same plot in {time.perf_counter() - t_again:.2f}s "
         f"(stages {again.timings}): labels and every cylinder field equal bit for bit: "
         f"{same_bits}")
@@ -3703,6 +3843,18 @@ def main() -> None:
             f"{c18[part]}")
     log("last_slice", f"phase 18 in {time.perf_counter() - t18:.2f}s")
     print(json.dumps({"last_slice": p18}, default=str), flush=True)
+    # 19. the bench's two configurations on its 10 M-point plot: (a) the main
+    # path at phase 5's settings, (b) build_trees at the reference's defaults
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    pts10 = synthetic_plot(BENCH_POINTS, N_TREES, args.seed, "cuda")
+    p19a = bench_plot_path(bm, mt, process_plot, Config, pts10, iso_cfg, plot_kw)
+    torch.cuda.empty_cache()
+    p19b = reference_defaults_path(bm, mt, ti, sampling, IsolationConfig, pts10, small, args.seed)
+    del pts10
+    log("bench_configs", f"phase 19 in {time.perf_counter() - t19:.2f}s")
+    print(json.dumps({"bench_configs": {"main_10m": p19a, "reference_defaults": p19b}},
+                     default=str), flush=True)
     paths = {"main (phase 5)": main_counts, "canopy (13a)": cp["counts"],
              "single-tree skeletonize (13b)": single["skeletonize"]["launches"],
              "single-tree canopy_metrics (13b)": single["canopy_metrics"]["launches"],
@@ -3710,7 +3862,9 @@ def main() -> None:
              "wavefront (15a-b)": wfp["counts"],
              "sharded raycast, 4 ranks (15c)": shr["counts"],
              "sphere walk (16a)": walk_counts, "CLI entry points (16b)": cli_counts,
-             "sphere forest (16c)": forest_counts, "batch driver (17b-c)": driver_counts, **c18}
+             "sphere forest (16c)": forest_counts, "batch driver (17b-c)": driver_counts, **c18,
+             "main path at 10 M points (19a)": p19a["counts"],
+             "build_trees at IsolationConfig() (19b)": p19b["counts"]}
 
     def band_entry(kname, source, replaces, n_launches):
         fine, coarse = checks[(kname, "fine")], checks[(kname, "coarse")]

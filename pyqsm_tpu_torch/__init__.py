@@ -39,7 +39,9 @@ from pyqsm_tpu_torch.config import Config, IsolationConfig, SkeletonizeConfig, l
 from pyqsm_tpu_torch.device import resolve_device
 from pyqsm_tpu_torch.state import Cylinders, PointCloud, SceneState, Topology
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Config", "IsolationConfig", "SkeletonizeConfig", "load_config",
-    "resolve_device", "Cylinders", "PointCloud", "SceneState", "Topology",
+    "resolve_device", "Cylinders", "PointCloud", "SceneState", "Topology", "__version__",
 ]

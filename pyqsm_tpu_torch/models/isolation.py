@@ -344,8 +344,9 @@ def _observed_growth(nbr_idx, compact, search, cfg, ccap, rep_pts, observer,
 
 def build_trees(points, mask, cfg: IsolationConfig | None = None,
                 exclude_regions: list | None = None, neighbor_cap: int = 16,
-                pre_voxel: float | None = None, observer=None, observe_every: int = 20,
-                mesh=None, device: str | torch.device = DEFAULT_DEVICE) -> GrowthResult:
+                pre_voxel: float | None = None, mesh=None, observer=None,
+                observe_every: int = 20,
+                device: str | torch.device = DEFAULT_DEVICE) -> GrowthResult:
     """Full isolation: voxel representatives at ``pre_voxel`` (default
     ``max_dist/2``; Morton-ordered) → trunk bases (outside
     ``exclude_regions``) → radius graph (``neighbor_cap`` neighbors) →

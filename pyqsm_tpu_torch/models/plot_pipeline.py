@@ -49,7 +49,7 @@ def _sync(dev: torch.device) -> None:
 def process_plot(points, mask, cfg: Config | None = None, iso_cfg: IsolationConfig | None = None,
                  skeleton_voxel: float = 0.05, max_skeleton_points: int = 50_000,
                  min_tree_points: int = 500, with_metrics: bool = False,
-                 max_trees: int | None = None, progress=None, mesh=None,
+                 max_trees: int | None = None, mesh=None, progress=None,
                  device: str | torch.device = DEFAULT_DEVICE) -> PlotResult:
     """Isolate every tree and fit a skeleton QSM per tree, on ``device``
     (``cuda`` unless the caller asks for the CPU).

@@ -255,9 +255,10 @@ def _outer_loop(pts, masks, L, wl, wh, shift, first, ratio, it, m0_mean, m0, cen
 
 
 def extract_skeleton_batch(points, masks, cfg: SkeletonizeConfig | None = None,
-                           cg_iters: int = 80, two_level: bool = True, coarse_stride: int = 4,
-                           _morton: bool = True, cg_iters_first: int | None = None,
-                           cg_iters_polish: int | None = None, mesh=None,
+                           cg_iters: int = 80, mesh=None, two_level: bool = True,
+                           coarse_stride: int = 4, _morton: bool = True,
+                           cg_iters_first: int | None = None,
+                           cg_iters_polish: int | None = None,
                            device: str | torch.device = DEFAULT_DEVICE) -> SkeletonResult:
     """Contract a batch of trees [T, P, 3] (masks [T, P]) onto their
     skeletons. Rows are Morton-ordered internally (the banded Laplacian

@@ -132,13 +132,19 @@ def smallest_k(d2: torch.Tensor, k: int, live_rows: torch.Tensor) -> torch.Tenso
 
 def knn(queries: torch.Tensor, points: torch.Tensor, k: int,
         query_mask: torch.Tensor | None = None,
-        point_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        point_mask: torch.Tensor | None = None, query_tile: int = 1024,
+        candidate_tile: int = 2048, approx: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of [..., Q, 3] queries among [..., N, 3] points (one
     optional leading batch axis). Returns ``(dists [.., Q, k] f32, idx
     [.., Q, k] i32)`` sorted ascending, ``(inf, -1)`` padded; equal
     distances rank by ascending index. Self-matches are kept (ask for k+1
-    and drop column 0). The JAX package's ``approx=True`` is exact on the
-    CPU, so the port has only the exact query."""
+    and drop column 0).
+
+    ``query_tile`` and ``candidate_tile`` are the JAX package's tiles,
+    accepted at its positions and unused: the port sizes its query blocks
+    from ``_TILE_ELEMS`` and scans every candidate at once, and no result
+    depends on a tile. ``approx=True`` runs the same exact top-k, as the
+    JAX package's does on the CPU."""
     unbatched = queries.dim() == 2
     if unbatched:
         queries, points = queries[None], points[None]
@@ -182,10 +188,13 @@ def radius_knn(queries, points, radius: float, k: int, query_mask=None, point_ma
 
 def radius_count(queries: torch.Tensor, points: torch.Tensor, radius: float,
                  query_mask: torch.Tensor | None = None,
-                 point_mask: torch.Tensor | None = None,
+                 point_mask: torch.Tensor | None = None, query_tile: int = 1024,
+                 candidate_tile: int = 2048,
                  weights: torch.Tensor | None = None) -> torch.Tensor:
     """Number (i32) of live points within ``radius`` of each query, or with
-    ``weights`` [N] the f32 sum of their weights."""
+    ``weights`` [N] the f32 sum of their weights. ``query_tile`` and
+    ``candidate_tile`` are the JAX package's tiles, accepted at its
+    positions and unused (the query blocks come from ``_TILE_ELEMS``)."""
     nq, npt = queries.shape[0], points.shape[0]
     dev = queries.device
     query_mask, point_mask = _live(queries, query_mask), _live(points, point_mask)

@@ -87,7 +87,8 @@ def _cached_grid3d(vertices: torch.Tensor, triangles: torch.Tensor):
 
 
 def cast_rays(origins: torch.Tensor, dirs: torch.Tensor, vertices: torch.Tensor,
-              triangles: torch.Tensor, backend: str = "auto", grid=None) -> Hits:
+              triangles: torch.Tensor, ray_tile: int = 2048, tri_tile: int = 1024,
+              backend: str = "auto", grid=None) -> Hits:
     """Closest hit + hit count of every ray (directions need not be
     normalised; t is in direction units).
 
@@ -96,7 +97,10 @@ def cast_rays(origins: torch.Tensor, dirs: torch.Tensor, vertices: torch.Tensor,
     uniform-grid DDA of ``ops.grid3d``, every crossing counted; the grid is
     cached per mesh tensor, or pass a prebuilt ``grid=``, a ``Grid3D`` or a
     ``TwoLevelGrid``) or "auto" ("kernel" below 4096 triangles, "grid" from
-    4096, the JAX package's routing on the TPU)."""
+    4096, the JAX package's routing on the TPU). ``ray_tile`` and
+    ``tri_tile`` are the JAX package's tiles of its XLA cast, accepted at
+    its positions and unused: the kernel plans its own blocks
+    (``ops.mt_raycast.plan``) and no route's result depends on a tile."""
     if grid is not None:
         backend = "grid"
     if backend == "auto":
@@ -220,9 +224,11 @@ _OCC_DIR = (1.73205e-4, 2.23607e-4, 1.0)
 
 
 def occupancy(points: torch.Tensor, vertices: torch.Tensor, triangles: torch.Tensor,
+              ray_tile: int = 2048, tri_tile: int = 1024,
               backend: str = "auto") -> torch.Tensor:
     """Inside/outside by crossing parity along a slightly off-axis +z ray
-    (the reference's ``compute_occupancy``)."""
+    (the reference's ``compute_occupancy``). The tiles are
+    ``cast_rays``' (unused); ``backend`` is the port's."""
     dirs = _as_vec(_OCC_DIR, points.device).expand_as(points)
     return (cast_rays(points, dirs, vertices, triangles, backend=backend).count % 2) == 1
 
@@ -272,10 +278,12 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def unsigned_distance(points: torch.Tensor, vertices: torch.Tensor,
-                      triangles: torch.Tensor) -> torch.Tensor:
+                      triangles: torch.Tensor, tri_tile: int = 1024) -> torch.Tensor:
     """Distance of every point to the closest valid triangle: the plane
     projection where it falls inside the triangle, else the closest of the
-    three edges."""
+    three edges. ``tri_tile`` is the JAX package's, accepted at its
+    position and unused: the port blocks ``_POINT_TILE`` points against
+    every triangle, and the minimum does not depend on a tile."""
     a, b, c = _corners(vertices, triangles)
     valid = triangles[:, 0] >= 0
     ab, ac = b - a, c - a

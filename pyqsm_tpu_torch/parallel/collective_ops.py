@@ -2,8 +2,9 @@
 ``pyqsm_tpu/parallel/collective_ops.py``).
 
 The JAX package runs these inside ``shard_map`` with a named axis; here
-each rank calls them on its own block with the ``Mesh`` and the axis name,
-and the collectives act on that axis's row of ranks: a ring of point
+each rank calls them on its own block with the JAX package's arguments,
+the axis name included, and the ``Mesh`` as the keyword ``mesh``; the
+collectives act on that axis's row of ranks: a ring of point
 shards for kNN (``ring_shift``), ``all_gather_rows`` for the small
 per-iteration solution vectors of the contraction CG, and
 ``all_reduce_sum`` for global reductions (inlier counts, mass means, dot
@@ -20,7 +21,7 @@ from pyqsm_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum,
 
 
 def ring_knn(queries: torch.Tensor, points: torch.Tensor, point_mask: torch.Tensor, k: int,
-             mesh: Mesh, axis: str) -> tuple[torch.Tensor, torch.Tensor]:
+             axis: str, *, mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of this rank's [Q, 3] queries against the point set
     sharded over ``axis``: the shards circulate the ring (received from the
     left), and each hop's [Q, P_local] block of ``q² + p² − 2·q·p`` (XLA's
@@ -57,7 +58,7 @@ def ring_knn(queries: torch.Tensor, points: torch.Tensor, point_mask: torch.Tens
 
 
 def sharded_laplacian_matvec(x_local: torch.Tensor, nbr_idx: torch.Tensor, w: torch.Tensor,
-                             deg: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+                             deg: torch.Tensor, axis: str, *, mesh: Mesh) -> torch.Tensor:
     """L x with x sharded over ``axis``: gather the (small) solution
     vector, then this rank's rows ``deg·x − Σ_k w·x[nbr]``."""
     x_full = all_gather_rows(x_local, mesh, axis)  # [P_global, C]
@@ -80,7 +81,7 @@ def _scatter_global(vals: torch.Tensor, nbr_idx: torch.Tensor, mesh: Mesh,
 
 
 def sharded_laplacian_rmatvec(y_local: torch.Tensor, nbr_idx: torch.Tensor, w: torch.Tensor,
-                              deg: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+                              deg: torch.Tensor, axis: str, *, mesh: Mesh) -> torch.Tensor:
     """Exact Lᵀ y with rows sharded over ``axis``: each rank scatters its
     rows' out-edge contributions ``w_ij·y_i`` to global destinations, the
     partial sums are summed over the axis and each rank takes its block
@@ -91,16 +92,16 @@ def sharded_laplacian_rmatvec(y_local: torch.Tensor, nbr_idx: torch.Tensor, w: t
 
 
 def sharded_cg(nbr_idx: torch.Tensor, w: torch.Tensor, deg: torch.Tensor, wl: torch.Tensor,
-               wh: torch.Tensor, b_local: torch.Tensor, mesh: Mesh, axis: str,
-               iters: int = 30) -> torch.Tensor:
+               wh: torch.Tensor, b_local: torch.Tensor, axis: str, iters: int = 30, *,
+               mesh: Mesh) -> torch.Tensor:
     """Jacobi-PCG on the contraction's normal equations ``(Lᵀ·WL²·L +
     WH²) x = b`` with the points sharded over ``axis``: a fixed ``iters``
     iterations, dot products summed over the axis; the Jacobi diagonal
     includes the in-edge term Σ_i (wl_i·w_ij)²."""
 
     def matvec(x_local):
-        y = sharded_laplacian_matvec(x_local, nbr_idx, w, deg, mesh, axis)
-        y = sharded_laplacian_rmatvec((wl * wl)[:, None] * y, nbr_idx, w, deg, mesh, axis)
+        y = sharded_laplacian_matvec(x_local, nbr_idx, w, deg, axis, mesh=mesh)
+        y = sharded_laplacian_rmatvec((wl * wl)[:, None] * y, nbr_idx, w, deg, axis, mesh=mesh)
         return y + (wh * wh)[:, None] * x_local
 
     in_sq = _scatter_global((wl[:, None] * torch.where(nbr_idx >= 0, w, 0.0)) ** 2, nbr_idx,
@@ -128,7 +129,7 @@ def sharded_cg(nbr_idx: torch.Tensor, w: torch.Tensor, deg: torch.Tensor, wl: to
 
 
 def psum_inlier_count(resid_local: torch.Tensor, mask_local: torch.Tensor, threshold: float,
-                      mesh: Mesh, axis: str) -> torch.Tensor:
+                      axis: str, *, mesh: Mesh) -> torch.Tensor:
     """Global RANSAC inlier count per hypothesis: this rank's count summed
     over ``axis``."""
     inl = (resid_local <= threshold) & mask_local[None, :]
@@ -136,7 +137,7 @@ def psum_inlier_count(resid_local: torch.Tensor, mask_local: torch.Tensor, thres
 
 
 def label_prop_round(labels_local: torch.Tensor, nbr_idx: torch.Tensor,
-                     edge_valid: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+                     edge_valid: torch.Tensor, axis: str, *, mesh: Mesh) -> torch.Tensor:
     """One min-label propagation round over labels sharded along ``axis``
     (the sharded DBSCAN/region-growing primitive): gather the labels, take
     each row's minimum over its valid neighbours (2³⁰ = none)."""

@@ -69,7 +69,7 @@ def _tree_step_local(pts: torch.Tensor, mask: torch.Tensor, samples: torch.Tenso
                      mesh: Mesh) -> dict:
     # 1. neighbour search over the ring
     safe = torch.where(mask[:, None], pts, 1e6)
-    d, idx = ring_knn(safe, safe, mask, k + 1, mesh, AXIS)
+    d, idx = ring_knn(safe, safe, mask, k + 1, AXIS, mesh=mesh)
     d, idx = d[:, 1:], idx[:, 1:]
     valid = idx >= 0
 
@@ -89,7 +89,7 @@ def _tree_step_local(pts: torch.Tensor, mask: torch.Tensor, samples: torch.Tenso
         3.0 * torch.sqrt(torch.clamp(mass_mean, min=1e-12)))
     wh = torch.full((n_local,), 3.0, device=pts.device)
     b = (wh * wh)[:, None] * torch.where(mask[:, None], pts, 0.0)
-    contracted = sharded_cg(idx, w, deg, wl, wh, b, mesh, AXIS, iters=15)
+    contracted = sharded_cg(idx, w, deg, wl, wh, b, AXIS, iters=15, mesh=mesh)
     shift = torch.where(mask[:, None], pts - contracted, 0.0)
 
     # 4. RANSAC circle on the xy projection: every rank's minimal samples
@@ -105,14 +105,14 @@ def _tree_step_local(pts: torch.Tensor, mask: torch.Tensor, samples: torch.Tenso
     centers = torch.stack([ux, uy], 1)
     radii = _norm(a - centers)
     resid = (_norm(pts[None, :, :2] - centers[:, None, :]) - radii[:, None]).abs()
-    scores = psum_inlier_count(resid, mask, 0.02, mesh, AXIS)  # [H] global
+    scores = psum_inlier_count(resid, mask, 0.02, AXIS, mesh=mesh)  # [H] global
     best = torch.argmax(torch.where(torch.isfinite(radii), scores, -1))
 
     # 5. one label-propagation round
     gids = mesh.axis_index(AXIS) * n_local + torch.arange(n_local, dtype=torch.int32,
                                                           device=pts.device)
     labels0 = torch.where(mask, gids, 2 ** 30)
-    labels = label_prop_round(labels0, idx, valid & (d <= 0.5), mesh, AXIS)
+    labels = label_prop_round(labels0, idx, valid & (d <= 0.5), AXIS, mesh=mesh)
     return dict(contracted=contracted, shift_mag=_norm(shift),
                 nbr_dist_mean=mean_d, fit_radius=radii[best], fit_center=centers[best],
                 labels=labels)

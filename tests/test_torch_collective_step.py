@@ -95,16 +95,16 @@ def _rank_cases(inp, draws, mesh=None):
         return torch.as_tensor(np.ascontiguousarray(a[r * (n // WORLD):(r + 1) * (n // WORLD)]))
 
     pts, m = blk(inp["knn"][0], N_KNN), blk(inp["knn"][1], N_KNN)
-    out = {"knn": co.ring_knn(pts, pts, m, K_KNN, mesh, "points")}
+    out = {"knn": co.ring_knn(pts, pts, m, K_KNN, "points", mesh=mesh)}
     c = {k: blk(v, N_CG) for k, v in inp["cg"].items()}
-    out["cg"] = co.sharded_cg(c["idx"], c["w"], c["deg"], c["wl"], c["wh"], c["b"], mesh,
-                              "points", iters=400)
+    out["cg"] = co.sharded_cg(c["idx"], c["w"], c["deg"], c["wl"], c["wh"], c["b"],
+                              "points", iters=400, mesh=mesh)
     resid, m = inp["inl"]
     out["inl"] = co.psum_inlier_count(
         torch.as_tensor(np.ascontiguousarray(resid[:, r * 256:(r + 1) * 256])), blk(m, N_KNN),
-        0.02, mesh, "points")
+        0.02, "points", mesh=mesh)
     lab, nbr, ok = (blk(a, N_KNN) for a in inp["lp"])
-    out["lp"] = co.label_prop_round(lab, nbr, ok, mesh, "points")
+    out["lp"] = co.label_prop_round(lab, nbr, ok, "points", mesh=mesh)
     tp = pm.tree_points_mesh(device="cpu")
     trees, step_mask = inp["step"]
     t, j = tp.coords()["trees"], tp.coords()["points"]

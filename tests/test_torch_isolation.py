@@ -290,3 +290,52 @@ def test_build_trees_observer_matches_jax(rng):
         _eq(ref.labels, b.labels)
         _eq(ref.order, b.order)
     assert int(a.cycles_run) == b.cycles_run
+
+
+def test_build_trees_in_the_jax_positional_form(rng):
+    """``build_trees(p, m, cfg, None, 16, None, None)``: the seventh
+    position is ``mesh`` in both packages; ``observer`` and
+    ``observe_every`` follow it. Labels, orders and cycles equal the JAX
+    package's, and the positional observer fires at its cycles."""
+    pts = two_tree_plot(rng)
+    m = np.ones(len(pts), bool)
+    cfg = dict(base_min_points=50, low_pctile=5.0, max_dist=0.35, cycles=300, min_frontier=2)
+    a = ji.build_trees(jnp.asarray(pts), jnp.asarray(m), JIso(**cfg), None, 16, None, None)
+    b = ti.build_trees(pts, m, TIso(**cfg), None, 16, None, None, device="cpu")
+    _eq(a.labels, b.labels)
+    _eq(a.order, b.order)
+    assert int(a.cycles_run) == b.cycles_run
+    calls_j, calls_t = [], []
+    ji.build_trees(jnp.asarray(pts), jnp.asarray(m), JIso(**cfg), None, 16, None, None,
+                   lambda c, *_: calls_j.append(c), 7)
+    c = ti.build_trees(pts, m, TIso(**cfg), None, 16, None, None,
+                       lambda cyc, *_: calls_t.append(cyc), 7, device="cpu")
+    assert calls_t == calls_j and len(calls_t) >= 2
+    _eq(a.labels, c.labels)
+
+
+def defaults_plot(rng, n_per=30_000):
+    """Two trees dense enough for the reference's defaults: at 0.05 m
+    representatives the 3 % slice holds ~500 trunk rows a tree, all within
+    ``base_eps`` = 1 m, above ``base_min_points`` = 300."""
+    return two_tree_plot(rng, n_per)
+
+
+@pytest.mark.parametrize("mode", ["auto", "push"])
+def test_build_trees_at_the_reference_defaults_matches_jax(rng, monkeypatch, mode):
+    """``IsolationConfig()`` (k 200, max_dist 0.1, 150 cycles, min_frontier
+    5, base_eps 1, base_min_points 300, low_pctile 3), as the bench's
+    reference-default section calls it: labels, orders and cycles equal
+    the JAX package's, on the claim the plot's size picks (gather) and on
+    the push claim the bench's plot takes."""
+    monkeypatch.setenv("PYQSM_CLAIM", mode)
+    pts = defaults_plot(rng)
+    m = np.ones(len(pts), bool)
+    a = ji.build_trees(jnp.asarray(pts), jnp.asarray(m), JIso())
+    b = ti.build_trees(pts, m, TIso(), device="cpu")
+    assert b.claim == ("gather" if mode == "auto" else "push")
+    _eq(a.labels, b.labels)
+    _eq(a.order, b.order)
+    assert int(a.cycles_run) == b.cycles_run
+    lab = b.labels.numpy()
+    assert len(np.unique(lab[lab >= 0])) == 2

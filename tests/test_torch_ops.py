@@ -138,6 +138,37 @@ def test_radius_knn_and_count(radius):
         tn.radius_count(tP, tP, radius, tM, tM, weights=torch.as_tensor(w)))
 
 
+@pytest.mark.parametrize("approx", [False, True])
+def test_knn_in_the_jax_positional_form(approx):
+    """``knn(q, p, k, qm, pm, query_tile, candidate_tile, approx)`` as a
+    caller of the JAX package writes it: the tiles change nothing, and
+    ``approx=True`` is the exact query on the CPU in both packages."""
+    pts, m = _cloud(5, scale=3.0)
+    q, qm = _cloud(6, n=700, scale=3.0)
+    da, ia = jn.knn(jnp.asarray(q), jnp.asarray(pts), 9, jnp.asarray(qm), jnp.asarray(m),
+                    256, 512, approx)
+    db, ib = tn.knn(torch.as_tensor(q), torch.as_tensor(pts), 9, torch.as_tensor(qm),
+                    torch.as_tensor(m), 256, 512, approx)
+    _eq(ia, ib)
+    np.testing.assert_allclose(np.asarray(da), db.numpy(), rtol=1e-6, atol=0)
+    dc, ic = tn.knn(torch.as_tensor(q), torch.as_tensor(pts), 9, torch.as_tensor(qm),
+                    torch.as_tensor(m))
+    assert torch.equal(ib, ic) and torch.equal(db, dc)
+
+
+def test_radius_count_tiles_and_weights_positional():
+    """The JAX package's sixth and seventh positions are the tiles and its
+    eighth ``weights``: a positional call counts the same in both."""
+    pts, m = _cloud(8)
+    P, M = jnp.asarray(pts), jnp.asarray(m)
+    tP, tM = torch.as_tensor(pts), torch.as_tensor(m)
+    w = np.random.default_rng(9).integers(1, 5, len(pts)).astype(np.float32)
+    _eq(jn.radius_count(P, P, 0.4, M, M, 256, 512), tn.radius_count(tP, tP, 0.4, tM, tM, 256, 512))
+    # integer-valued weights: f32 sums exact in any order
+    _eq(jn.radius_count(P, P, 0.4, M, M, 256, 512, jnp.asarray(w)),
+        tn.radius_count(tP, tP, 0.4, tM, tM, 256, 512, torch.as_tensor(w)))
+
+
 @pytest.mark.parametrize("k", [4, 16, 24])
 def test_grid_self_radius_any_k(k):
     pts, m = _cloud(10, n=3000, scale=1.5)

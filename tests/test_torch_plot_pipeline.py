@@ -92,6 +92,33 @@ def test_max_trees_and_a_raising_progress_callback(jax_run):
     assert b.trees[0].metrics is None and int(b.trees[0].cylinders.count()) >= 1
 
 
+def test_process_plot_in_the_jax_positional_form():
+    """``process_plot(p, m, cfg, iso, 0.05, 50_000, 500, False, None, None)``
+    as a caller of the JAX package writes it (the tenth position is
+    ``mesh`` in both packages), with ``progress`` eleventh: the JAX
+    package's labels, tree ids and point counts, cylinders within the
+    tolerance of test_process_plot_two_trees_matches_jax."""
+    from pyqsm_tpu.config import Config as JConfig
+
+    from pyqsm_tpu_torch.config import Config as TConfig
+
+    pts = _two_trees(np.random.default_rng(0))
+    ones = np.ones(len(pts), bool)
+    a = j_process_plot(jnp.asarray(pts), jnp.asarray(ones), JConfig(), JIso(**ISO), 0.05,
+                       50_000, 500, False, None, None)
+    stages = []
+    b = t_process_plot(pts, ones, TConfig(), TIso(**ISO), 0.05, 50_000, 500, False, None, None,
+                       lambda stage, s: stages.append(stage), device="cpu")
+    np.testing.assert_array_equal(b.growth.labels.numpy(), np.asarray(a.growth.labels))
+    assert [(t.tree_id, t.n_points) for t in b.trees] == [(t.tree_id, t.n_points) for t in a.trees]
+    assert len(b.trees) == 2 and stages == ["isolation", "ladder", "contraction", "topology"]
+    for tj, tt in zip(a.trees, b.trees):
+        mj, mt = np.asarray(tj.cylinders.mask), tt.cylinders.mask.numpy()
+        assert abs(int(mt.sum()) - int(mj.sum())) <= 1 and mt.sum() >= 1
+        rj, rt = np.asarray(tj.cylinders.radius)[mj], tt.cylinders.radius.numpy()[mt]
+        np.testing.assert_allclose(np.median(rt), np.median(rj), rtol=0.1)
+
+
 def test_tree_result_has_the_reference_fields():
     """Code that unpacks the reference's 4-field ``TreeResult`` works on the
     port's; the metrics default to None (``with_metrics=False``)."""

@@ -193,6 +193,32 @@ def test_occupancy_and_unsigned_distance_match_jax():
     np.testing.assert_allclose(dist, dist_j, rtol=1e-5, atol=1e-5)
 
 
+def test_cast_rays_occupancy_distance_with_jax_positional_tiles():
+    """The JAX package's positional tiles (``cast_rays``' fifth and sixth,
+    ``occupancy``'s fourth and fifth, ``unsigned_distance``'s fourth), and
+    ``backend`` after them: both packages give the same hits, parity and
+    distances, and the tiles change nothing in the port."""
+    v, t, o, d = _scene("padded")
+    h = tr.cast_rays(_t(o), _t(d), _t(v), _t(t), 512, 128, "auto")
+    ref = jr.cast_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(v), jnp.asarray(t), 512, 128,
+                       "auto")
+    hn = hits_to_numpy(h)
+    _assert_hits_match(hn["t"], hn["tri"], hn["uv"], hn["count"], *(_np(x) for x in ref))
+    assert all(torch.equal(a, b) for a, b in zip(h, tr.cast_rays(_t(o), _t(d), _t(v), _t(t))))
+    mesh = jm.sphere_mesh(jnp.array([0.0, 0, 0]), 1.0, n_lat=12, n_lon=24)
+    pts = np.random.default_rng(4).uniform(-1.5, 1.5, (300, 3)).astype(np.float32)
+    sv, st = _np(mesh.vertices), _np(mesh.triangles)
+    occ = tr.occupancy(_t(pts), _t(sv), _t(st), 512, 128)
+    np.testing.assert_array_equal(
+        occ.numpy(), _np(jr.occupancy(jnp.asarray(pts), mesh.vertices, mesh.triangles, 512, 128)))
+    assert torch.equal(occ, tr.occupancy(_t(pts), _t(sv), _t(st), 512, 128, "plain"))
+    dist = tr.unsigned_distance(_t(pts), _t(sv), _t(st), 64)
+    dist_j = _np(jr.unsigned_distance(jnp.asarray(pts), mesh.vertices, mesh.triangles, 64))
+    # as test_occupancy_and_unsigned_distance_match_jax: 1e-5 m on a 1 m sphere
+    np.testing.assert_allclose(dist.numpy(), dist_j, rtol=1e-5, atol=1e-5)
+    assert torch.equal(dist, tr.unsigned_distance(_t(pts), _t(sv), _t(st)))
+
+
 def test_exposed_surface_area_and_hit_points_match_jax():
     v, t, o, d = _scene("padded")
     ref = jr.cast_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(v), jnp.asarray(t))

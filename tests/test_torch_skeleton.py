@@ -82,6 +82,27 @@ def test_extract_skeleton_batch_matches_jax(cap, n_live, trees):
         assert np.median(d) < 5e-4, f
 
 
+def test_extract_skeleton_batch_in_the_jax_positional_form():
+    """``extract_skeleton_batch(p, m, cfg, 80, None)``: the fifth position
+    is ``mesh`` in both packages, so ``None`` runs the single-device
+    contraction and ``two_level`` keeps its default. Same iteration counts
+    as the JAX package's, points within the tolerance above, and the same
+    bits as the port's keyword call."""
+    from pyqsm_tpu.config import SkeletonizeConfig as JSkel
+
+    from pyqsm_tpu_torch.config import SkeletonizeConfig as TSkel
+
+    pts, m = _batch(2048, 2000)
+    a = jsk.extract_skeleton_batch(jnp.asarray(pts), jnp.asarray(m), JSkel(), 80, None)
+    b = tsk.extract_skeleton_batch(pts, m, TSkel(), 80, None, device="cpu")
+    np.testing.assert_array_equal(b.iterations.numpy(), np.asarray(a.iterations))
+    for f in ("contracted", "total_shift", "first_shift"):
+        d = np.abs(getattr(b, f).numpy() - np.asarray(getattr(a, f)))[m]
+        assert np.percentile(d, 99) < 5e-3, f
+    c = tsk.extract_skeleton_batch(pts, m, cfg=TSkel(), cg_iters=80, device="cpu")
+    assert all(torch.equal(x, y) for x, y in zip(b, c))
+
+
 def test_topology_and_qsm_on_same_contracted_cloud():
     """Topology (FPS, kNN, Borůvka, degree-2 simplify) and cylinders from
     identical contracted input: same vertices and edges, cylinders equal to
